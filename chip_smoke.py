@@ -6,14 +6,15 @@
 Phases, each printing short JSON lines; any failure exits non-zero:
 
 1. the card's name and power limit; every kernel in csrc/ built with nvcc
-   for sm_90a, all started together;
+   for sm_90a;
 2. each hand kernel against its plain PyTorch version on the card, on
    the shapes of the main path and edge cases: the keep masks must be
    bit-identical. Then the kernel's and the plain version's times;
-3. the goldens gate: the float32 detector (TF32 off) on the committed
-   frozen weights over resources/test_pics_synthetic must pass the >=95%
-   box/confidence parity gate of tests/fixtures/goldens_twin_rfb320_
-   synthetic.json;
+3. the goldens gate: the float32 detector (TF32 off process-wide) on the
+   committed frozen weights over resources/test_pics_synthetic must pass
+   the >=95% box/confidence parity gate of tests/fixtures/goldens_twin_
+   rfb320_synthetic.json; with TF32 turned on process-wide its packed
+   output must not change;
 4. the main path: Detector() (RFB-320, bfloat16) on a batch of 16 640x480
    frames through run_device(pack_output=True), with the kernels' launch
    counts set to 0 just before and read just after; the same scores
@@ -26,7 +27,6 @@ Needs one CUDA card and the repository's sources; imports nothing of JAX.
 
 from __future__ import annotations
 
-import concurrent.futures
 import json
 import pathlib
 import subprocess
@@ -73,26 +73,36 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def profile_device(fn, iters: int) -> dict:
     """Device time by kernel over ``iters`` calls of ``fn()``, from
-    torch.profiler (CUPTI). ``device_ms`` is None where the trace shows
-    no device activity."""
+    torch.profiler (CUPTI), and the wall time of the same window from
+    CUDA events recorded around it. ``device_ms`` is None where the trace
+    shows no device activity. ``idle_share`` is 1 - busy / wall over that
+    one window; the profiler's own host cost is inside it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        start.record()
         for _ in range(iters):
             fn()
+        end.record()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.count, e.self_device_time_total)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda r: -r[2])
     total_us = sum(r[2] for r in rows)
+    busy_ms = total_us / iters / 1e3 if total_us else None
+    wall_ms = start.elapsed_time(end) / iters
     return {
-        "device_ms": total_us / iters / 1e3 if total_us else None,
+        "device_ms": busy_ms,
+        "wall_ms": wall_ms,
+        "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
         "device_ops_per_iter": sum(r[1] for r in rows) / iters,
         "top": [[name[:64], count / iters, us / iters / 1e3]
                 for name, count, us in rows[:8]],
@@ -108,22 +118,17 @@ def gpu_info() -> str:
 
 
 def build_kernels() -> dict:
-    """Every csrc/ kernel, one nvcc each, all started together."""
+    """Every csrc/ kernel (this slice has one), built with nvcc."""
     from infercam_onnx_tpu_torch import kernels
     from infercam_onnx_tpu_torch.ops import nms
 
-    sources = {nms.SOURCE: nms.FLAGS}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        futs = {s: pool.submit(kernels.build, s, f)
-                for s, f in sources.items()}
-        libs = {s: f.result() for s, f in futs.items()}
-    ptxas = {
-        s: [ln.strip() for ln in p.with_suffix(".log").read_text().splitlines()
-            if "registers" in ln or "smem" in ln]
-        for s, p in libs.items()}
+    lib = kernels.build(nms.SOURCE)
+    ptxas = [ln.strip()
+             for ln in lib.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "smem" in ln]
     return {"build_s": round(time.perf_counter() - t0, 3),
-            "libraries": [p.name for p in libs.values()], "ptxas": ptxas}
+            "libraries": [lib.name], "ptxas": {nms.SOURCE: ptxas}}
 
 
 # -- phase 2: kernel vs plain ---------------------------------------------
@@ -244,15 +249,66 @@ def time_nms(device) -> dict:
 # -- phase 3 and 4: the detector ------------------------------------------
 
 
+def set_tf32(state: str) -> None:
+    """Process-wide TF32 settings, through either of PyTorch's APIs."""
+    import torch
+
+    b = torch.backends
+    if state == "off":
+        b.cudnn.allow_tf32 = False
+        b.cuda.matmul.allow_tf32 = False
+    elif state == "on_legacy_api":
+        b.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+    elif state == "on_fp32_precision_api":
+        b.cuda.matmul.fp32_precision = "tf32"
+        b.cudnn.conv.fp32_precision = "tf32"
+    elif state == "default":  # PyTorch's: convs may use TF32, matmuls not
+        b.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("highest")
+    else:
+        raise ValueError(state)
+
+
 def goldens_gate(device) -> dict:
-    from infercam_onnx_tpu_torch.config import DetectorConfig
+    """The float32 detector on the frozen weights: the goldens gate with
+    TF32 off process-wide; then its packed output on the synthetic
+    pictures with TF32 on process-wide, through either API, which must be
+    bit-identical (the detector scopes IEEE float32 itself). The float32
+    trunk run outside that scope shows how far TF32 would move it."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig, full_float32
     from infercam_onnx_tpu_torch.detector import Detector
-    from infercam_onnx_tpu_torch.eval.goldens import check_against_goldens
+    from infercam_onnx_tpu_torch.eval.goldens import (check_against_goldens,
+                                                      load_directory_frames)
+    from infercam_onnx_tpu_torch.ops.preprocess import preprocess_images
 
     det = Detector(DetectorConfig(variant="RFB-320", compute_dtype="float32",
                                   top_k=512, max_detections=256),
                    weights=str(WEIGHTS), device=device)
-    return check_against_goldens(det, str(SYNTH_PICS), str(GOLDENS))
+    frames = np.stack(list(load_directory_frames(str(SYNTH_PICS)).values()))
+    set_tf32("off")
+    out = {"gate_tf32": "off (cudnn.allow_tf32 = matmul.allow_tf32 = False)",
+           **check_against_goldens(det, str(SYNTH_PICS), str(GOLDENS))}
+    want = det.run_device(frames, pack_output=True).cpu()
+    out["identical_with_tf32_on"] = {}
+    for state in ("on_legacy_api", "on_fp32_precision_api"):
+        set_tf32(state)
+        got = det.run_device(frames, pack_output=True).cpu()
+        out["identical_with_tf32_on"][state] = torch.equal(got, want)
+    _, h, w, _ = frames.shape
+    images = torch.from_numpy(frames).to(device)
+    with torch.inference_mode():
+        x = preprocess_images(images, *det.preprocessor.matrices(w, h))
+        tf32 = det.model(x, det.priors)
+        with full_float32():
+            ieee = det.model(x, det.priors)
+    out["unscoped_tf32_trunk_max_abs_diff"] = max(
+        float((a - b).abs().max()) for a, b in zip(tf32, ieee))
+    set_tf32("default")
+    return out
 
 
 def synthetic_batch(n: int, width: int, height: int):
@@ -295,7 +351,7 @@ def main_path(device) -> dict:
 
     det = Detector(device=device)  # RFB-320, bfloat16, random weights
     frames = synthetic_batch(16, 640, 480)
-    det.warmup(16, 480, 640, pack_output=True)
+    det.warmup(16, 480, 640)
 
     nms.kernel.launches = 0
     packed = det.run_device(frames, pack_output=True)
@@ -322,8 +378,7 @@ def main_path(device) -> dict:
 
     ms = time_ms(lambda: program("kernel"), 20)
     plain_nms_ms = time_ms(lambda: program("scan"), 3, 1)
-    prof = profile_device(lambda: program("kernel"), 10)
-    busy = prof["device_ms"]
+    prof = profile_device(lambda: program("kernel"), 20)
 
     t0 = time.perf_counter()
     for _ in range(10):  # numpy frames in, packed detections on the host
@@ -332,7 +387,7 @@ def main_path(device) -> dict:
 
     det640 = Detector(DetectorConfig(variant="RFB-640"), device=device)
     frames640 = synthetic_batch(4, 640, 480)
-    det640.warmup(4, 480, 640, pack_output=True)
+    det640.warmup(4, 480, 640)
     images640 = torch.from_numpy(frames640).to(device)
     packed640 = det640.run_device(images640, pack_output=True)
     ms640 = time_ms(lambda: det640.run_device(images640, pack_output=True),
@@ -343,8 +398,10 @@ def main_path(device) -> dict:
         "ms_per_batch": ms, "frames_per_s": 16 / ms * 1e3,
         "ms_per_batch_plain_nms": plain_nms_ms,
         "host_ms_per_batch": host_ms,
-        "device_busy_ms_per_batch": busy,
-        "device_idle_share": None if busy is None else max(0.0, 1 - busy / ms),
+        # busy and wall from the same profiled window of 20 batches
+        "device_busy_ms_per_batch": prof["device_ms"],
+        "profiled_wall_ms_per_batch": prof["wall_ms"],
+        "device_idle_share": prof["idle_share"],
         "device_ops_per_batch": prof["device_ops_per_iter"],
         "top_device_ms": prof["top"],
         "rfb640_b4": {"ms_per_batch": ms640,
@@ -362,15 +419,10 @@ def main() -> int:
     import infercam_onnx_tpu_torch  # noqa: F401
 
     device = torch.device("cuda", 0)
-    # float32 convs and matmuls in full float32: the goldens and the u8
-    # rounding of the resize are held to float32 results
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = gpu_info()
     name, power = (s.strip() for s in smi.split(",", 1))
     emit({"phase": "gpu", "gpu": name, "power_limit": power,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "cudnn_allow_tf32": False, "matmul_allow_tf32": False})
+          "torch": torch.__version__, "cuda": torch.version.cuda})
     emit({"phase": "build", **build_kernels()})
 
     kcheck = check_nms_kernel(device)
@@ -386,6 +438,9 @@ def main() -> int:
     emit({"phase": "goldens", **gold})
     if not gold["passed"]:
         raise SystemExit("goldens gate failed")
+    if not all(gold["identical_with_tf32_on"].values()):
+        raise SystemExit("the float32 detector's output moved with the "
+                         "process-wide TF32 setting")
 
     path = main_path(device)
     emit({"phase": "main_path", "gpu": name, "power_limit": power,

@@ -140,20 +140,18 @@ nms_kernel(const float* __restrict__ boxes_t,  // [B, 4, K]
 
 extern "C" int nms_max_k() { return kMaxK; }
 
-// Launches on `stream` of `device`; returns the CUDA error code (0 = ok).
-// Does not synchronize.
+// Launches on `stream`, on the calling thread's current device (the
+// caller makes the tensors' device current); returns the CUDA error code
+// (0 = ok). Does not synchronize.
 extern "C" int nms_greedy_suppress(const float* boxes_t, const float* valid,
                                    float* keep, int batch, int k,
-                                   float max_iou, int device, void* stream) {
+                                   float max_iou, void* stream) {
   if (batch <= 0 || k <= 0 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
   const int words = (k + 63) / 64;
   const size_t smem = shared_bytes(words);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(nms_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   nms_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(

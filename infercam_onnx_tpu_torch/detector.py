@@ -14,7 +14,8 @@ import logging
 import numpy as np
 import torch
 
-from infercam_onnx_tpu_torch.config import DetectorConfig, resolve_device
+from infercam_onnx_tpu_torch.config import (DetectorConfig, full_float32,
+                                            resolve_device)
 from infercam_onnx_tpu_torch.models import checkpoint
 from infercam_onnx_tpu_torch.models import ultraface as uf
 from infercam_onnx_tpu_torch.ops.postprocess import batched_postprocess
@@ -29,6 +30,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @torch.inference_mode()
+@full_float32()
 def detect_program(
     model: uf.UltraFace,
     priors: torch.Tensor,
@@ -45,7 +47,8 @@ def detect_program(
 ):
     """uint8 frames in, padded detections out, all on ``images.device``.
 
-    The convs run in the model's parameter dtype. Returns
+    The convs run in the model's parameter dtype, a float32 trunk in IEEE
+    float32 whatever the process's TF32 settings. Returns
     ``(boxes [B,D,4], confs [B,D], counts [B])``, or with ``pack_output``
     one [B, D, 6] array of rows (x_tl, y_tl, x_br, y_br, confidence,
     valid). ``nms_impl`` is `batched_nms`'s ``impl``."""
@@ -132,12 +135,11 @@ class Detector:
             top_k=c.top_k, max_detections=c.max_detections,
             pack_output=pack_output)
 
-    def warmup(self, batch_size: int, height: int, width: int, *,
-               pack_output: bool = False) -> None:
+    def warmup(self, batch_size: int, height: int, width: int) -> None:
         """Run one (B, H, W) batch so the kernel build, cuDNN's algorithm
         choice and the resize matrices happen ahead of traffic."""
         dummy = np.zeros((batch_size, height, width, 3), np.uint8)
-        self.run_device(dummy, pack_output=pack_output)
+        self.run_device(dummy, pack_output=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

@@ -5,9 +5,9 @@ The port's copy of ``infercam_onnx_tpu/eval/goldens.py``
 ``infercam_onnx_tpu/eval/parity.py``:
 
 - detections are greedily matched by IoU (highest first);
-- a match counts toward *box parity* when IoU >= ``iou_thresh`` and
+- a match counts toward *box parity* when IoU >= `IOU_THRESH` and
   toward *confidence parity* when also ``|conf_got - conf_want| <=
-  conf_tol``;
+  CONF_TOL``;
 - parity = matched / max(len(want), len(got)), so both misses and extras
   count against it.
 
@@ -27,6 +27,9 @@ import numpy as np
 from infercam_onnx_tpu_torch import codec
 
 EPS = 1e-7
+IOU_THRESH = 0.5
+CONF_TOL = 0.02
+MIN_PARITY = 0.95
 Detections = Sequence[tuple[np.ndarray, float]]
 
 
@@ -74,14 +77,14 @@ class ParityReport:
         }
 
 
-def match_detections(got: Detections, want: Detections,
-                     iou_thresh: float = 0.5) -> list[tuple[int, int, float]]:
+def match_detections(got: Detections,
+                     want: Detections) -> list[tuple[int, int, float]]:
     """Greedy IoU matching: [(got_idx, want_idx, iou)], best IoU first."""
     pairs = []
     for i, (gb, _) in enumerate(got):
         for j, (wb, _) in enumerate(want):
             v = iou(np.asarray(gb, np.float64), np.asarray(wb, np.float64))
-            if v >= iou_thresh:
+            if v >= IOU_THRESH:
                 pairs.append((v, i, j))
     pairs.sort(reverse=True)
     used_g: set[int] = set()
@@ -97,25 +100,23 @@ def match_detections(got: Detections, want: Detections,
 
 
 def parity_report(got_sets: Sequence[Detections],
-                  want_sets: Sequence[Detections], *,
-                  iou_thresh: float = 0.5,
-                  conf_tol: float = 0.02) -> ParityReport:
+                  want_sets: Sequence[Detections]) -> ParityReport:
     report = ParityReport()
     for got, want in zip(got_sets, want_sets):
         report.images += 1
         report.want_total += len(want)
         report.got_total += len(got)
-        for gi, wi, _ in match_detections(got, want, iou_thresh):
+        for gi, wi, _ in match_detections(got, want):
             report.box_matched += 1
-            if abs(got[gi][1] - want[wi][1]) <= conf_tol:
+            if abs(got[gi][1] - want[wi][1]) <= CONF_TOL:
                 report.conf_matched += 1
     return report
 
 
-def fidelity_gate(report: ParityReport, min_parity: float = 0.95) -> bool:
-    """True iff both box and confidence parity clear the gate."""
-    return (report.box_parity >= min_parity
-            and report.conf_parity >= min_parity)
+def fidelity_gate(report: ParityReport) -> bool:
+    """True iff both box and confidence parity clear `MIN_PARITY`."""
+    return (report.box_parity >= MIN_PARITY
+            and report.conf_parity >= MIN_PARITY)
 
 
 def load_directory_frames(directory: str,
@@ -154,21 +155,20 @@ def _as_detection_sets(table: dict[str, list], names: list[str]):
              for row in table.get(n, [])] for n in names]
 
 
-def check_against_goldens(detector, directory: str, goldens_path: str, *,
-                          min_parity: float = 0.95,
-                          resize: tuple[int, int] | None = None) -> dict:
-    """Run ``detector`` over the JPEGs in ``directory`` and gate the
-    result against the fixture; ``result["passed"]`` is the verdict."""
+def check_against_goldens(detector, directory: str,
+                          goldens_path: str) -> dict:
+    """Run ``detector`` over the JPEGs in ``directory`` (resized as the
+    fixture says) and gate the result against the fixture;
+    ``result["passed"]`` is the verdict."""
     with open(goldens_path) as f:
         meta = json.load(f)
-    if resize is None and meta.get("resize"):
-        resize = tuple(meta["resize"])
+    resize = tuple(meta["resize"]) if meta.get("resize") else None
     got_table = detect_directory(detector, directory, resize=resize)
     want_table = meta["detections"]
     names = sorted(set(got_table) | set(want_table))
     report = parity_report(_as_detection_sets(got_table, names),
                            _as_detection_sets(want_table, names))
     result = report.as_dict()
-    result["passed"] = fidelity_gate(report, min_parity)
-    result["min_parity"] = min_parity
+    result["passed"] = fidelity_gate(report)
+    result["min_parity"] = MIN_PARITY
     return result

@@ -19,8 +19,11 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "kernels"
+# -fmad=false keeps each multiply and add rounded separately, as the plain
+# PyTorch versions compute them, so the kernels' results are bit-identical.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 
 def nvcc_path() -> str:
@@ -34,20 +37,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(source: str, extra_flags: tuple[str, ...] = ()) -> pathlib.Path:
+def build(source: str) -> pathlib.Path:
     """Compile ``csrc/<source>`` unless its library exists; returns its
     path. nvcc's messages (ptxas register and shared-memory use) are kept
     beside it as ``.log``."""
     src = CSRC / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS + extra_flags).encode()
-    ).hexdigest()[:16]
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
@@ -58,5 +60,5 @@ def build(source: str, extra_flags: tuple[str, ...] = ()) -> pathlib.Path:
     return out
 
 
-def load(source: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build(source, extra_flags)))
+def load(source: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(source)))

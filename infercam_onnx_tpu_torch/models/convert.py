@@ -22,10 +22,10 @@ StateDict = Mapping[str, Array]
 BN_EPS = 1e-5  # upstream BatchNorm2d default
 
 
-def fold_bn(gamma: Array, beta: Array, mean: Array, var: Array,
-            eps: float = BN_EPS) -> tuple[Array, Array]:
+def fold_bn(gamma: Array, beta: Array, mean: Array,
+            var: Array) -> tuple[Array, Array]:
     """Inference-mode BatchNorm as ``x * scale + bias``."""
-    scale = gamma / np.sqrt(var + eps)
+    scale = gamma / np.sqrt(var + BN_EPS)
     bias = beta - mean * scale
     return scale.astype(np.float32), bias.astype(np.float32)
 
@@ -87,10 +87,10 @@ def _separable(g: _Getter, prefix: str) -> dict:
     return {"dw": _biased(g, f"{prefix}.0"), "pw": _biased(g, f"{prefix}.2")}
 
 
-def params_from_state_dict(sd: StateDict, *, strict: bool = True) -> dict:
+def params_from_state_dict(sd: StateDict) -> dict:
     """Upstream-named tensors -> JAX-layout parameter pytree (NumPy).
 
-    ``strict`` raises on tensors the mapping did not consume."""
+    Raises on missing tensors and on tensors the mapping did not consume."""
     g = _Getter(sd)
     # block 7: BasicRFB (RFB family) or conv_dw (slim family)
     if "base_net.7.branch0.0.conv.weight" in g.sd:
@@ -125,7 +125,7 @@ def params_from_state_dict(sd: StateDict, *, strict: bool = True) -> dict:
         else:
             cls_heads.append(_biased(g, f"classification_headers.{level}"))
             reg_heads.append(_biased(g, f"regression_headers.{level}"))
-    if strict and g.unused():
+    if g.unused():
         raise ValueError(f"unconsumed parameters: {g.unused()[:10]}")
     return {"base": base, "extras": extras,
             "cls_heads": cls_heads, "reg_heads": reg_heads}

@@ -20,9 +20,6 @@ from infercam_onnx_tpu_torch import kernels
 
 EPS = 1e-7  # IoU denominator guard (reference nn.rs:17-18)
 SOURCE = "nms.cu"
-# -fmad=false keeps each multiply and add rounded separately, as the
-# plain version computes them, so the keep masks are bit-identical.
-FLAGS = ("-fmad=false",)
 
 
 def bbox_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -68,11 +65,10 @@ class NmsKernel:
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = kernels.load(SOURCE, FLAGS)
+            lib = kernels.load(SOURCE)
             lib.nms_greedy_suppress.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
             lib.nms_greedy_suppress.restype = ctypes.c_int
             lib.nms_max_k.argtypes = []
             lib.nms_max_k.restype = ctypes.c_int
@@ -102,10 +98,11 @@ class NmsKernel:
                            device=boxes_t.device)
         if b == 0 or k == 0:
             return keep
-        stream = torch.cuda.current_stream(boxes_t.device)
-        rc = lib.nms_greedy_suppress(
-            boxes_t.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
-            float(max_iou), boxes_t.device.index or 0, stream.cuda_stream)
+        # the tensors' device is current for the launch only
+        with torch.cuda.device(boxes_t.device):
+            rc = lib.nms_greedy_suppress(
+                boxes_t.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+                float(max_iou), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(
                 f"nms kernel launch failed: CUDA error {rc} "

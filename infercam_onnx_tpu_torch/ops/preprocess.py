@@ -3,7 +3,8 @@ the MobileNet normalize (``infercam_onnx_tpu/ops/preprocess.py``).
 
 The resize products are plain matmuls in the JAX package too (XLA
 einsums, no Pallas kernel), so ``torch.matmul`` carries them here. They
-must run in full float32: TF32 would move resample sums across the u8
+run in full float32 whatever the process's TF32 settings
+(`config.full_float32`): TF32 would move resample sums across the u8
 rounding boundary.
 """
 
@@ -13,6 +14,8 @@ import functools
 
 import numpy as np
 import torch
+
+from infercam_onnx_tpu_torch.config import full_float32
 
 # MobileNet normalization constants.
 MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -46,6 +49,7 @@ def triangle_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@full_float32()
 def preprocess_images(images: torch.Tensor, r_h: torch.Tensor,
                       r_w: torch.Tensor) -> torch.Tensor:
     """[B, H, W, 3] uint8 frames -> [B, h, w, 3] float32 normalized.
@@ -94,7 +98,3 @@ class Preprocessor:
             self._cache[key] = (torch.from_numpy(r_h).to(self.device),
                                 torch.from_numpy(r_w).to(self.device))
         return self._cache[key]
-
-    def __call__(self, images: torch.Tensor) -> torch.Tensor:
-        _, h, w, _ = images.shape
-        return preprocess_images(images, *self.matrices(w, h))

@@ -88,14 +88,14 @@ def test_batched_nms_on_cuda_matches_cpu(cuda, impl):
 
 
 def test_detector_on_cuda_matches_cpu_f32(cuda):
-    """float32 trunk with TF32 off, frozen weights, the synthetic
-    pictures: the card's packed output equals the CPU's in counts, and
-    within 1e-4 in values (cuDNN and oneDNN sum the convs in different
-    orders)."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """float32 trunk, frozen weights, the synthetic pictures, with TF32
+    turned on for the whole process: the detector runs in IEEE float32
+    all the same, so the card's packed output equals the CPU's in counts,
+    and within 1e-4 in values (cuDNN and oneDNN sum the convs in
+    different orders)."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = "tf32"
     try:
         frames = np.stack(list(load_directory_frames(
             str(REPO / "resources" / "test_pics_synthetic")).values()))
@@ -107,7 +107,6 @@ def test_detector_on_cuda_matches_cpu_f32(cuda):
         want = Detector(config, weights=weights, device="cpu").run_device(
             frames, pack_output=True)
     finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        matmul.fp32_precision, conv.fp32_precision = saved
     assert torch.equal(got[..., 5], want[..., 5])
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

@@ -79,4 +79,35 @@ def test_preprocessor_caches_matrices_on_device():
     assert r_h.shape == (240, 480) and r_w.shape == (320, 640)
     assert r_h.device.type == "cpu" and r_h.dtype == torch.float32
     frames = torch.zeros((1, 480, 640, 3), dtype=torch.uint8)
-    assert pre(frames).shape == (1, 240, 320, 3)
+    out = tpp.preprocess_images(frames, *pre.matrices(640, 480))
+    assert out.shape == (1, 240, 320, 3)
+
+
+def test_resize_matmuls_run_in_ieee_float32_whatever_the_caller_set(
+        monkeypatch):
+    """A caller's TF32 setting is overridden inside preprocess_images and
+    restored after it, also when the call raises."""
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    seen = []
+    real_matmul = torch.matmul
+
+    def recording_matmul(a, b):
+        seen.append((matmul.fp32_precision, conv.fp32_precision))
+        return real_matmul(a, b)
+
+    monkeypatch.setattr(torch, "matmul", recording_matmul)
+    try:
+        matmul.fp32_precision = conv.fp32_precision = "tf32"
+        img = torch.zeros((1, 4, 4, 3), dtype=torch.uint8)
+        r = torch.full((2, 4), 0.25)
+        tpp.preprocess_images(img, r, r)
+        assert seen == [("ieee", "ieee")] * 2
+        assert (matmul.fp32_precision, conv.fp32_precision) == ("tf32",
+                                                                "tf32")
+        with pytest.raises(RuntimeError):
+            tpp.preprocess_images(img, torch.zeros((2, 5)), r)
+        assert (matmul.fp32_precision, conv.fp32_precision) == ("tf32",
+                                                                "tf32")
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
