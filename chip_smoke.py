@@ -9,7 +9,13 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    for sm_90a;
 2. each hand kernel against its plain PyTorch version on the card, on
    the shapes of the main path and edge cases: the keep masks must be
-   bit-identical. Then the kernel's and the plain version's times;
+   bit-identical. Then the NMS kernel's and the plain version's times at
+   three inputs: (a) random clustered boxes, B=16, K=256, 80% valid; (b)
+   the candidates the main path feeds it, captured from batched_nms on
+   the frozen weights (RFB-320, top_k 256, 16 synthetic frames); (c)
+   B=16, K=1024 clustered boxes, the size of a cross-tile merge. Each
+   with its own bound. A second build of the kernel with its time stamps
+   turned on splits its time into phase 1 and the scan;
 3. the goldens gate: the float32 detector (TF32 off process-wide) on the
    committed frozen weights over resources/test_pics_synthetic must pass
    the >=95% box/confidence parity gate of tests/fixtures/goldens_twin_
@@ -99,14 +105,23 @@ def profile_device(fn, iters: int) -> dict:
     total_us = sum(r[2] for r in rows)
     busy_ms = total_us / iters / 1e3 if total_us else None
     wall_ms = start.elapsed_time(end) / iters
+    per_iter = [[name[:64], count / iters, us / iters / 1e3]
+                for name, count, us in rows]
     return {
         "device_ms": busy_ms,
         "wall_ms": wall_ms,
         "idle_share": None if busy_ms is None else 1 - busy_ms / wall_ms,
         "device_ops_per_iter": sum(r[1] for r in rows) / iters,
-        "top": [[name[:64], count / iters, us / iters / 1e3]
-                for name, count, us in rows[:8]],
+        "top": per_iter[:8],
+        "rows": per_iter,
     }
+
+
+def kernel_ms(prof: dict, name: str) -> float | None:
+    """Device ms per launch of the kernels whose name holds ``name``."""
+    hits = [(count, ms) for key, count, ms in prof["rows"] if name in key]
+    launches = sum(c for c, _ in hits)
+    return sum(ms for _, ms in hits) / launches if launches else None
 
 
 def gpu_info() -> str:
@@ -176,6 +191,39 @@ def nms_cases(device):
     grid = np.round(_clustered_boxes(rng, 8, 256) * 10) / 10
     cases["ties_b8_k256"] = case(grid.astype(np.float32),
                                  np.ones((8, 256), bool))
+    # the launch's cluster sizing (B=1, 64) and a cross-tile merge's K
+    rng = np.random.default_rng(2)
+    for b, k in ((1, 256), (64, 256), (16, 1024)):
+        boxes = _clustered_boxes(rng, b, k)
+        valid = rng.uniform(size=(b, k)) < 0.8
+        cases[f"random_b{b}_k{k}"] = case(boxes, valid)
+    # valid masks and boxes the kernel must take as the plain version does
+    k = 256
+    boxes = _clustered_boxes(rng, 16, k)
+    dense = rng.uniform(size=(16, k)) < 0.8
+    prefix = np.zeros((16, k), bool)
+    prefix[:, :k // 8] = True
+    prefix[:, k // 8::37] = True  # a few strays after a short prefix
+    cases["sparse_prefix_b16_k256"] = case(boxes, prefix)
+    cases["all_invalid_b16_k256"] = case(boxes, np.zeros((16, k), bool))
+    nan_first = dense.copy()
+    nan_first[:, 0] = False  # a NaN confidence sorts first, invalid
+    cases["invalid_first_b16_k256"] = case(boxes, nan_first)
+    nan = boxes.copy()
+    nan[:, 3::7, 1] = np.nan  # IoU NaN: never suppresses
+    nan[:, 0, 2] = np.nan
+    cases["nan_boxes_b16_k256"] = case(nan, dense)
+    dup = boxes.copy()
+    dup[:, k // 2:] = dup[:, :k // 2]  # exact copies: IoU 1
+    dup[:, 1:9] = dup[:, :1]
+    cases["duplicates_b16_k256"] = case(dup, np.ones((16, k), bool))
+    # the kernel decides +-0 intersections without dividing: zero-area
+    # and zero boxes, at thresholds where +-0 IoUs do and do not suppress
+    flat = boxes.copy()
+    flat[:, 10:20, 2:] = flat[:, 10:20, :2]
+    flat[:, 20:30] = 0.0
+    for miou, tag in ((0.0, "zero"), (-0.5, "negative")):
+        cases[f"{tag}_max_iou_b16_k256"] = case(flat, dense, miou)
     return cases
 
 
@@ -185,14 +233,19 @@ def check_nms_kernel(device) -> dict:
 
     from infercam_onnx_tpu_torch.ops import nms, postprocess
 
-    out = {"cases": {}, "mismatches": 0, "max_abs_err": 0.0}
+    out = {"cases": {}, "mismatches": 0, "max_abs_err": 0.0,
+           "cases_not_launched_once": 0}
     for name, (boxes_t, valid, max_iou) in nms_cases(device).items():
+        before = nms.kernel.launches
         got = nms.greedy_suppress(boxes_t, valid, max_iou=max_iou)
+        launches = nms.kernel.launches - before
         want = nms.greedy_suppress_reference(boxes_t, valid, max_iou=max_iou)
         torch.cuda.synchronize()
         bad = int((got != want).sum())
-        out["cases"][name] = {"kept": int(got.sum()), "mismatches": bad}
+        out["cases"][name] = {"kept": int(got.sum()), "mismatches": bad,
+                              "launches": launches}
         out["mismatches"] += bad
+        out["cases_not_launched_once"] += launches != 1
         out["max_abs_err"] = max(out["max_abs_err"],
                                  float((got - want).abs().max()))
     # the whole filter + NMS on confidence ties (few distinct levels)
@@ -211,39 +264,188 @@ def check_nms_kernel(device) -> dict:
         out["cases"][f"batched_nms_ties_{impl}"] = {
             "count": int(res[2].sum()), "mismatches": bad}
         out["mismatches"] += bad
+    out["cluster_plans"] = {
+        f"b{b}_k{k}": nms.kernel.cluster_plan(b, k)
+        for b, k in ((1, 1024), (16, 256), (16, 1024), (64, 1024))}
     return out
 
 
-def time_nms(device) -> dict:
-    """Kernel and plain version at the main path's shape (B=16, K=256)."""
+def main_path_nms_input(device):
+    """The candidates the main path hands the NMS kernel, captured from
+    batched_nms: the frozen weights (RFB-320, bfloat16, top_k 256) on 16
+    synthetic 640x480 frames."""
+    from infercam_onnx_tpu_torch.detector import Detector
     from infercam_onnx_tpu_torch.ops import nms
 
-    boxes_t, valid, max_iou = nms_cases(device)["random_b16_k256"]
-    b, _, k = boxes_t.shape
-    # event timing of back-to-back wrapper calls includes the host's
-    # launch cost; the profiler gives the kernel's own device time
-    call_ms = time_ms(lambda: nms.kernel(boxes_t, valid, max_iou), 500, 20)
-    prof = profile_device(lambda: nms.kernel(boxes_t, valid, max_iou), 50)
-    kernel_ms = next((ms / count for name, count, ms in prof["top"]
-                      if "nms_kernel" in name), None)
-    plain_ms = time_ms(
-        lambda: nms.greedy_suppress_reference(boxes_t, valid,
-                                              max_iou=max_iou), 5, 1)
-    keep = nms.kernel(boxes_t, valid, max_iou)
-    words = (k + 63) // 64
-    n_bytes = b * k * (4 + 1 + 1) * 4  # boxes and valid in, keep out
-    ops = (b * (k * (k - 1) // 2 * NMS_OPS_PER_PAIR + k * NMS_OPS_PER_BOX)
-           + b * k + int(keep.sum()) * words)  # scan: tests + row ORs
+    det = Detector(weights=str(WEIGHTS), device=device)
+    captured = []
+    real = nms.kernel
+
+    def capture(boxes_t, valid, max_iou):
+        captured.append((boxes_t.clone(), valid.clone(), max_iou))
+        return real(boxes_t, valid, max_iou)
+
+    nms.kernel = capture
+    try:
+        det.run_device(synthetic_batch(16, 640, 480), pack_output=True)
+    finally:
+        nms.kernel = real
+    if len(captured) != 1:
+        raise SystemExit(f"the main path called the nms kernel "
+                         f"{len(captured)} times, not once")
+    return captured[0]
+
+
+def nms_inputs(device) -> dict:
+    """The three inputs the NMS kernel is timed at."""
+    cases = nms_cases(device)
+    return {"a_random_b16_k256": cases["random_b16_k256"],
+            "b_main_path_b16_k256": main_path_nms_input(device),
+            "c_clustered_b16_k1024": cases["random_b16_k1024"]}
+
+
+def nms_work(boxes_t, valid, keep) -> dict:
+    """Bytes and operations these inputs need, and the bound they set.
+
+    Per image, with v valid candidates and n = last valid index + 1:
+    operations = 14 * v(v-1)/2 (one IoU test per valid pair) + 5 * v (the
+    valid boxes' areas) + n (validity tests in the scan) + one OR per kept
+    candidate and later 64-candidate word below n; bytes = 4 * K (valid
+    read) + 16 * v (the valid boxes read) + 4 * K (keep written).
+    bound_ms = max(bytes / 3.35 TB/s, operations / 67 TFLOP/s)."""
+    import torch
+
+    ok = valid[:, 0] > 0.5
+    b, k = ok.shape
+    idx = torch.arange(k, device=ok.device)
+    v = ok.sum(-1)
+    n = torch.where(ok, idx + 1, 0).amax(-1)
+    later_words = ((n[:, None] + 63) // 64 - idx // 64 - 1).clamp(min=0)
+    kept = keep[:, 0] > 0.5
+    scan = int(n.sum()) + int((kept * later_words).sum())
+    ops = (int((v * (v - 1) // 2).sum()) * NMS_OPS_PER_PAIR
+           + int(v.sum()) * NMS_OPS_PER_BOX + scan)
+    n_bytes = 4 * b * k + 16 * int(v.sum()) + 4 * b * k
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-    return {"shape": [b, k], "ms": kernel_ms, "call_ms": call_ms,
-            "plain_ms": plain_ms,
+    return {"valid": int(v.sum()), "kept": int(kept.sum()),
             "bytes": n_bytes, "ops": ops,
             "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            # no single PyTorch call computes greedy NMS (torchvision's
-            # nms is not installed and is not part of PyTorch)
-            "library_ms": None}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def nms_device_ms(kern, boxes_t, valid, max_iou) -> float | None:
+    """Device ms per launch of the NMS kernel ``kern`` (an NmsKernel) on
+    one input, from the profiler over 50 calls."""
+    prof = profile_device(lambda: kern(boxes_t, valid, max_iou), 50)
+    return kernel_ms(prof, "nms_kernel")
+
+
+def time_nms(device, inputs: dict) -> dict:
+    """Per input: the kernel's device time (profiler), the time of
+    back-to-back wrapper calls (CUDA events, host launch cost included),
+    the plain version's time, and the bound."""
+    import torch
+
+    from infercam_onnx_tpu_torch.ops import nms
+
+    out = {}
+    for name, (boxes_t, valid, max_iou) in inputs.items():
+        keep = nms.kernel(boxes_t, valid, max_iou)
+        rec = {"shape": [boxes_t.shape[0], boxes_t.shape[2]],
+               "ms": nms_device_ms(nms.kernel, boxes_t, valid, max_iou)}
+        rec["call_ms"] = time_ms(lambda: nms.kernel(boxes_t, valid, max_iou),
+                                 500, 20)
+        rec["plain_ms"] = time_ms(
+            lambda: nms.greedy_suppress_reference(boxes_t, valid,
+                                                  max_iou=max_iou), 5, 1)
+        rec.update(nms_work(boxes_t, valid, keep))
+        # no single PyTorch call computes greedy NMS (torchvision's nms is
+        # not installed and is not part of PyTorch)
+        rec["library_ms"] = None
+        torch.cuda.synchronize()
+        out[name] = rec
+    return out
+
+
+# Turns on the NMS_STAMP(slot) points of csrc/nms.cu in a second build:
+# thread 0 of each cluster's first CTA writes %globaltimer and clock64()
+# at five points, which nms_read_stamps copies out.
+STAMP_HEADER = """#include <cuda_runtime.h>
+__device__ unsigned long long nms_stamps[64 * 16];
+__device__ __forceinline__ void nms_stamp(int b, int slot) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (b < 64) {
+    nms_stamps[b * 16 + slot] = t;
+    nms_stamps[b * 16 + 8 + slot] = (unsigned long long)clock64();
+  }
+}
+extern "C" int nms_read_stamps(unsigned long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, nms_stamps,
+                                   n * sizeof(unsigned long long));
+}
+#define NMS_STAMP(slot) if (rank == 0 && threadIdx.x == 0) nms_stamp(b, slot)
+"""
+STAMP_POINTS = ("start", "phase1_done", "after_phase1_barrier", "scan_done",
+                "end")
+
+
+def stamped_nms_source() -> pathlib.Path:
+    """csrc/nms.cu with its stamps turned on, written into the build
+    directory."""
+    from infercam_onnx_tpu_torch import kernels
+    from infercam_onnx_tpu_torch.ops import nms
+
+    out = kernels.BUILD_DIR / "nms_stamped.cu"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(STAMP_HEADER + (kernels.CSRC / nms.SOURCE).read_text())
+    return out
+
+
+def nms_phase_split(device, inputs: dict, iters: int = 30) -> dict:
+    """The stamped build's time per part, mean over images and launches
+    (the first 5 launches are warm-up): ns from %globaltimer, cycles from
+    clock64() on the same SM, and the span from the first image's start
+    to the last image's end of each launch."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.ops import nms
+
+    kern = nms.NmsKernel(source=str(stamped_nms_source()))
+    lib = kern.library()
+    lib.nms_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.nms_read_stamps.restype = ctypes.c_int
+    parts = [f"{a}->{b}" for a, b in zip(STAMP_POINTS, STAMP_POINTS[1:])]
+    out = {}
+    for name, (boxes_t, valid, max_iou) in inputs.items():
+        b = boxes_t.shape[0]
+        buf = np.zeros(b * 16, np.uint64)
+        ns, cycles, spans, bad = [], [], [], 0
+        want = nms.greedy_suppress_reference(boxes_t, valid, max_iou=max_iou)
+        for it in range(iters):
+            got = kern(boxes_t, valid, max_iou)
+            torch.cuda.synchronize()
+            if lib.nms_read_stamps(buf.ctypes.data, b * 16) != 0:
+                raise SystemExit("reading the nms stamps failed")
+            bad += int((got != want).sum())
+            st = buf.reshape(b, 16).astype(np.int64)
+            if it >= 5:
+                ns.append(np.diff(st[:, :5], axis=1))
+                cycles.append(np.diff(st[:, 8:13], axis=1))
+                spans.append(st[:, 4].max() - st[:, 0].min())
+        ns, cycles = np.concatenate(ns), np.concatenate(cycles)
+        out[name] = {
+            "mismatches": bad,
+            "ns": dict(zip(parts, ns.mean(0).tolist())),
+            "cycles": dict(zip(parts, cycles.mean(0).tolist())),
+            "launch_span_ns": float(np.mean(spans)),
+            "sm_ghz": float(cycles.sum() / max(ns.sum(), 1)),
+        }
+    return out
 
 
 # -- phase 3 and 4: the detector ------------------------------------------
@@ -379,6 +581,7 @@ def main_path(device) -> dict:
     ms = time_ms(lambda: program("kernel"), 20)
     plain_nms_ms = time_ms(lambda: program("scan"), 3, 1)
     prof = profile_device(lambda: program("kernel"), 20)
+    nms_ms = kernel_ms(prof, "nms_kernel")
 
     t0 = time.perf_counter()
     for _ in range(10):  # numpy frames in, packed detections on the host
@@ -403,6 +606,8 @@ def main_path(device) -> dict:
         "profiled_wall_ms_per_batch": prof["wall_ms"],
         "device_idle_share": prof["idle_share"],
         "device_ops_per_batch": prof["device_ops_per_iter"],
+        "nms_device_ms_per_batch": nms_ms,
+        "nms_share_of_busy": nms_ms / prof["device_ms"],
         "top_device_ms": prof["top"],
         "rfb640_b4": {"ms_per_batch": ms640,
                       "sanity": check_packed(packed640, c.min_confidence)},
@@ -429,10 +634,21 @@ def main() -> int:
     emit({"phase": "nms_kernel_vs_plain", **kcheck})
     if kcheck["mismatches"]:
         raise SystemExit("nms kernel disagrees with its plain version")
-    ktime = time_nms(device)
-    emit({"phase": "nms_time", "gpu": name, "power_limit": power, **ktime})
-    if ktime["ms"] is None:
+    if kcheck["cases_not_launched_once"]:
+        raise SystemExit("a call of the nms kernel did not launch it once")
+    inputs = nms_inputs(device)
+    ktime = time_nms(device, inputs)
+    for key, rec in ktime.items():
+        emit({"phase": "nms_time", "input": key, "gpu": name,
+              "power_limit": power, **rec})
+    if any(rec["ms"] is None for rec in ktime.values()):
         raise SystemExit("the profiler recorded no nms_kernel device time")
+    split = nms_phase_split(device, inputs)
+    emit({"phase": "nms_phase_split", "gpu": name, "power_limit": power,
+          **split})
+    if any(rec["mismatches"] for rec in split.values()):
+        raise SystemExit("the stamped nms build disagrees with the plain "
+                         "version")
 
     gold = goldens_gate(device)
     emit({"phase": "goldens", **gold})
@@ -449,19 +665,28 @@ def main() -> int:
         raise SystemExit("main path output failed its sanity checks")
     if not path["identical_kernel_vs_plain"]:
         raise SystemExit("packed output differs between kernel and plain NMS")
-    if path["launches"]["nms"] < 1:
-        raise SystemExit("main path did not launch the nms kernel")
+    if path["launches"]["nms"] != 1:
+        raise SystemExit(f"main path launched the nms kernel "
+                         f"{path['launches']['nms']} times, not once")
 
+    head = ktime["a_random_b16_k256"]
     emit({"kernels": [{
         "name": "nms_greedy_suppress", "route": "cuda",
         "source": "infercam_onnx_tpu_torch/csrc/nms.cu",
         "replaces": "infercam_onnx_tpu/ops/pallas/nms.py:45",
+        "redesigned": "v2: a thread block cluster per image builds the "
+                      "valid-pairs bitmask; the scan resolves 64 candidates "
+                      "at a time",
         "launches": path["launches"]["nms"],
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
-        "ms": ktime["ms"], "plain_ms": ktime["plain_ms"],
-        "bound_ms": ktime["bound_ms"], "bound_by": ktime["bound_by"],
-        "library_ms": ktime["library_ms"]}]})
+        # at input (a), B=16 K=256 random boxes, as in the first version
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "by_input": {key[0]: {f: rec[f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+            for key, rec in ktime.items()}}]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

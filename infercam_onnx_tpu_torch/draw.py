@@ -3,9 +3,9 @@ rectangles from relative coords scaled by the frame dims, with a
 "{:.2f}%" confidence label in 16 px DejaVu Sans Mono at the top-left
 corner.
 
-The font file is read by path from the JAX package's ``resources/``
-(it carries its licence there), then from matplotlib's copy, then PIL's
-default bitmap font.
+The font is the package's own copy, ``resources/DejaVuSansMono.ttf``
+(its licence beside it), then matplotlib's copy, then PIL's default
+bitmap font.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ from PIL import Image, ImageDraw, ImageFont
 
 GREEN = (0, 255, 0)
 FONT_SIZE = 16
-_FONT_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "infercam_onnx_tpu", "resources", "DejaVuSansMono.ttf")
+_FONT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "resources", "DejaVuSansMono.ttf")
 
 
 @functools.lru_cache(maxsize=1)

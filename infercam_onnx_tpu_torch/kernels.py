@@ -38,9 +38,10 @@ def nvcc_path() -> str:
 
 
 def build(source: str) -> pathlib.Path:
-    """Compile ``csrc/<source>`` unless its library exists; returns its
-    path. nvcc's messages (ptxas register and shared-memory use) are kept
-    beside it as ``.log``."""
+    """Compile ``csrc/<source>`` (or ``source``, where it is an absolute
+    path) unless its library exists; returns its path. nvcc's messages
+    (ptxas register and shared-memory use) are kept beside it as
+    ``.log``."""
     src = CSRC / source
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]

@@ -4,10 +4,13 @@
 ``infercam_onnx_tpu/ops/pallas/nms.py:greedy_suppress`` (the repo's one
 ``pl.pallas_call``), with the same interface: corner boxes ``[B, 4, K]``
 in descending-confidence order and a 0/1 validity mask ``[B, 1, K]`` in,
-a float 0/1 keep mask ``[B, 1, K]`` out. On CUDA tensors it launches
-``csrc/nms.cu`` (see the note there for its design and what bounds it);
-on CPU tensors it runs `greedy_suppress_reference`, the sequential scan
-form, which `tests/` and ``chip_smoke.py`` hold the kernel against.
+a float 0/1 keep mask ``[B, 1, K]`` out, K <= 1024. On CUDA tensors it
+launches ``csrc/nms.cu`` once: a thread block cluster per image builds
+the IoU bitmask for the valid pairs below the last valid candidate, and
+one warp resolves the greedy order 64 candidates at a time (see the note
+there for the design and what bounds it). On CPU tensors it runs
+`greedy_suppress_reference`, the sequential scan form, which `tests/` and
+``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -57,15 +60,18 @@ def greedy_suppress_reference(boxes_t: torch.Tensor, valid: torch.Tensor,
 class NmsKernel:
     """``csrc/nms.cu`` loaded with ctypes, built at first launch.
 
-    ``launches`` counts the kernel launches made through this object."""
+    ``launches`` counts the kernel launches made through this object.
+    ``source`` names another file with the same C interface, such as a
+    build of ``csrc/nms.cu`` with its time stamps turned on."""
 
-    def __init__(self):
+    def __init__(self, source: str = SOURCE):
         self.launches = 0
+        self.source = source
         self._lib: ctypes.CDLL | None = None
 
     def library(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = kernels.load(SOURCE)
+            lib = kernels.load(self.source)
             lib.nms_greedy_suppress.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -109,6 +115,24 @@ class NmsKernel:
                 f"({lib.cuda_error_string(rc).decode()})")
         self.launches += 1
         return keep
+
+    def cluster_plan(self, batch: int, k: int) -> dict:
+        """The launch a call with ``batch`` images of ``k`` candidates
+        makes on the current device: its cluster size, the dynamic shared
+        memory of each CTA, and how many such clusters the device can hold
+        at once (``cudaOccupancyMaxActiveClusters``)."""
+        fn = self.library().nms_cluster_plan
+        fn.argtypes = [ctypes.c_int, ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        out = [ctypes.c_int() for _ in range(3)]
+        rc = fn(batch, k, *(ctypes.byref(o) for o in out))
+        if rc != 0:
+            raise RuntimeError(
+                f"nms cluster plan failed: CUDA error {rc} "
+                f"({self.library().cuda_error_string(rc).decode()})")
+        return dict(zip(("cluster", "smem_bytes", "active_clusters"),
+                        (o.value for o in out)))
 
 
 kernel = NmsKernel()

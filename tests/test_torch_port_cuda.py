@@ -49,7 +49,8 @@ def _candidates(seed, b, k, device):
 
 
 @pytest.mark.parametrize("b,k", [(16, 256), (4, 512), (3, 300), (2, 2),
-                                 (2, 64), (1, 1024)])
+                                 (2, 64), (1, 1024), (1, 256), (64, 256),
+                                 (16, 1024)])
 def test_nms_kernel_bit_identical_to_plain(cuda, b, k):
     boxes_t, valid = _candidates(k, b, k, cuda)
     before = nms.kernel.launches
@@ -59,6 +60,63 @@ def test_nms_kernel_bit_identical_to_plain(cuda, b, k):
     assert nms.kernel.launches == before + 1
     assert got.shape == (b, 1, k) and got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+def _edit_candidates(kind, boxes_t, valid):
+    """Valid masks, boxes and thresholds the kernel must take exactly as
+    the plain version does; returns max_iou."""
+    b, _, k = valid.shape
+    if kind == "sparse_prefix":  # a short valid prefix, a few strays after
+        valid.zero_()
+        valid[:, :, : k // 8] = 1.0
+        valid[:, :, k // 8:: 37] = 1.0
+    elif kind == "all_invalid":
+        valid.zero_()
+    elif kind == "nan_boxes":  # NaN coordinates: IoU NaN never suppresses
+        boxes_t[:, 1, 3::7] = float("nan")
+        boxes_t[:, 2, 0] = float("nan")
+    elif kind == "duplicates":  # exact copies: IoU 1 with the later copy
+        boxes_t[:, :, k // 2:] = boxes_t[:, :, : k - k // 2]
+        boxes_t[:, :, 1:9] = boxes_t[:, :, :1]
+    elif kind in ("zero_max_iou", "negative_max_iou"):
+        # the kernel decides +-0 intersections without dividing
+        boxes_t[:, 2:, 10:20] = boxes_t[:, :2, 10:20]  # zero area
+        boxes_t[:, :, 20:30] = 0.0
+        return 0.0 if kind == "zero_max_iou" else -0.5
+    else:
+        raise ValueError(kind)
+    return 0.5
+
+
+@pytest.mark.parametrize("kind", ["sparse_prefix", "all_invalid",
+                                  "nan_boxes", "duplicates", "zero_max_iou",
+                                  "negative_max_iou"])
+@pytest.mark.parametrize("b,k", [(1, 256), (16, 256), (64, 256),
+                                 (16, 1024)])
+def test_nms_kernel_edge_inputs_bit_identical(cuda, kind, b, k):
+    boxes_t, valid = _candidates(b * k, b, k, cuda)
+    max_iou = _edit_candidates(kind, boxes_t, valid)
+    before = nms.kernel.launches
+    got = nms.greedy_suppress(boxes_t, valid, max_iou=max_iou)
+    want = nms.greedy_suppress_reference(boxes_t, valid, max_iou=max_iou)
+    torch.cuda.synchronize()
+    assert nms.kernel.launches == before + 1
+    assert torch.equal(got, want)
+    if kind == "all_invalid":
+        assert int(got.sum()) == 0
+
+
+@pytest.mark.parametrize("b,cluster", [(1, 8), (16, 8), (64, 2)])
+def test_nms_kernel_clusters_fit_at_k1024(cuda, b, cluster):
+    """B * cluster fills the SMs (at most 8 a cluster), and the shared
+    memory each CTA takes at K=1024 still lets such clusters be resident."""
+    plan = nms.kernel.cluster_plan(b, 1024)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms == 132:
+        assert plan["cluster"] == cluster
+    assert 1 <= plan["cluster"] <= 8
+    assert plan["active_clusters"] >= 1
+    assert plan["smem_bytes"] <= 227 * 1024
 
 
 def test_nms_kernel_refuses_bad_input(cuda):

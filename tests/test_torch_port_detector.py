@@ -142,6 +142,29 @@ def test_detect_cli_on_cpu(tmp_path, capsys):
     assert annotated.shape == (480, 640, 3)
 
 
+def test_draw_uses_the_ports_own_font():
+    """draw.py reads the DejaVu font from the port's own resources/ (its
+    licence beside it), not from the JAX package, and draws exactly what
+    the JAX package's draw_detections draws."""
+    from infercam_onnx_tpu import draw as jdraw
+    from infercam_onnx_tpu_torch import draw as tdraw
+
+    pkg = REPO / "infercam_onnx_tpu_torch"
+    font = pathlib.Path(tdraw._FONT_PATH)
+    assert font.parent == pkg / "resources" and font.is_file()
+    assert (pkg / "resources" / "LICENSE_DEJAVU").is_file()
+    assert font.read_bytes() == (
+        REPO / "infercam_onnx_tpu" / "resources" / "DejaVuSansMono.ttf"
+    ).read_bytes()
+    assert tdraw._font().path == str(font)
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 256, size=(120, 160, 3), dtype=np.uint8)
+    dets = [(np.array([0.1, 0.2, 0.5, 0.7], np.float32), 0.875),
+            (np.array([0.4, 0.05, 0.95, 0.5], np.float32), 0.51234)]
+    np.testing.assert_array_equal(tdraw.draw_detections(frame, dets),
+                                  jdraw.draw_detections(frame, dets))
+
+
 def test_port_imports_no_jax():
     """Importing every module of the port, and chip_smoke.py, pulls in
     neither jax nor any module of the JAX package."""

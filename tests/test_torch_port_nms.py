@@ -9,6 +9,8 @@ plain forms. All must give exactly the JAX counts, order and values
 
 import functools
 
+import hypothesis
+import hypothesis.strategies as st
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -195,3 +197,280 @@ def test_unknown_impl_raises():
     with pytest.raises(ValueError, match="unknown impl"):
         tpp.batched_nms(torch.zeros((1, 4)), torch.zeros((1, 4, 4)),
                         impl="pallas")
+
+
+# -- a NumPy model of csrc/nms.cu --------------------------------------------
+#
+# The kernel's bit logic, step for step, so that it can be rehearsed
+# without a card: the valid-pairs-only bitmask, built by the CTAs of a
+# cluster in units of one 8-row group against one 64-column word (row
+# group g of each 64-row band belongs to CTA g % cluster), each unit
+# written once into the first CTA's bitmask (band by band from the
+# diagonal word on, word-major), and the scan that resolves one
+# 64-candidate word at a time (the ctz walk over the diagonal block, a
+# 32-candidate half at a time, then the OR propagation into later words).
+# Words are Python ints; a word the scan reads must have been written.
+
+ROWS = 8
+GROUPS = 64 // ROWS
+WARPS = 16
+MASK32 = (1 << 32) - 1
+
+
+def _pow2_floor(x):
+    p = 1
+    while 2 * p <= x:
+        p *= 2
+    return p
+
+
+def _cluster_size(batch, k, sms=132):
+    """csrc/nms.cu:cluster_size."""
+    by_work = -(-_tiles((k + 63) // 64) * GROUPS // WARPS)
+    need = 1
+    while need < by_work and need < 8:
+        need *= 2
+    return min(need, _pow2_floor(max(sms // batch, 1)))
+
+
+def _tiles(words):
+    return words * (words + 1) // 2
+
+
+def _band_base(jw, kw):
+    return 64 * (jw * kw - jw * (jw - 1) // 2)
+
+
+def _suppresses(j, cols, x0, y0, x1, y1, ar, max_iou):
+    """iou(j, i) > max_iou for each i in ``cols``, float32 as the kernel,
+    which skips the divide where the intersection is +-0."""
+    tlx = np.maximum(x0[j], x0[cols])
+    tly = np.maximum(y0[j], y0[cols])
+    brx = np.minimum(x1[j], x1[cols])
+    bry = np.minimum(y1[j], y1[cols])
+    w, h = brx - tlx, bry - tly
+    inter = np.where((w < 0) | (h < 0), np.float32(0), w * h)
+    den = ((ar[j] + ar[cols]) - inter) + np.float32(1e-7)
+    miou = np.float32(max_iou)
+    zero = (den == den) & (den != 0) & (np.float32(0) > miou)
+    nonzero = inter[inter != 0] / den[inter != 0] > miou
+    out = zero.copy()
+    out[inter != 0] = nonzero
+    return out
+
+
+def model_suppress(boxes_t, valid, max_iou, cluster):
+    """Keep mask [B, 1, K] and the number of IoUs computed per image."""
+    bsz, _, k = boxes_t.shape
+    kw = (k + 63) // 64
+    lg = cluster.bit_length() - 1
+    glg = 3 - lg  # row groups per band in each CTA: 1 << glg
+    keep = np.zeros((bsz, 1, k), np.float32)
+    pairs = []
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        for b in range(bsz):
+            ok = valid[b, 0] > 0.5
+            vbits = [sum(1 << t for t in range(64) if 64 * w + t < k
+                         and ok[64 * w + t]) for w in range(kw)]
+            wn = max((w + 1 for w in range(kw) if vbits[w]), default=0)
+            n = 64 * wn - (64 - vbits[wn - 1].bit_length()) if wn else 0
+            x0, y0, x1, y1 = (boxes_t[b, c, :n] for c in range(4))
+            w_, h_ = x1 - x0, y1 - y0
+            ar = np.where((w_ < 0) | (h_ < 0), np.float32(0), w_ * h_)
+            # phase 1: each CTA's units, into the first CTA's bitmask
+            bits = {}
+            computed = 0
+            for rank in range(cluster):
+                for v in range(_tiles(wn) << glg):
+                    t, jw = v >> glg, 0
+                    while t >= wn - jw:
+                        t -= wn - jw
+                        jw += 1
+                    iw = jw + t
+                    local = v & ((1 << glg) - 1)
+                    j0 = 64 * jw + ((local << lg) + rank) * ROWS
+                    for r in range(ROWS):
+                        j = j0 + r
+                        word = 0
+                        if (vbits[jw] >> (j & 63)) & 1:
+                            cols = np.array(
+                                [i for i in range(64 * iw, 64 * iw + 64)
+                                 if (vbits[iw] >> (i & 63)) & 1 and i > j],
+                                np.int64)
+                            computed += cols.size
+                            if cols.size:
+                                hit = _suppresses(j, cols, x0, y0, x1, y1,
+                                                  ar, max_iou)
+                                for i in cols[hit]:
+                                    word |= 1 << (int(i) & 63)
+                        at = _band_base(jw, kw) + (iw - jw) * 64 + (j & 63)
+                        assert at not in bits and at < 64 * _tiles(kw)
+                        bits[at] = word
+            pairs.append(computed)
+
+            def row(j, jw):
+                """Row j, indexed by word."""
+                return {iw: bits[_band_base(jw, kw) + (iw - jw) * 64 + (j & 63)]
+                        for iw in range(jw, wn)}
+
+            # phase 2, a word at a time; removed[w] is lane w's word
+            removed = [0] * kw
+            for jw in range(wn):
+                cand = vbits[jw] & ~removed[jw]
+                rows = {t: row(64 * jw + t, jw) for t in range(64)
+                        if (cand >> t) & 1}
+                clo, chi, klo, khi = cand & MASK32, cand >> 32, 0, 0
+                while clo:
+                    t = (clo & -clo).bit_length() - 1  # ctz
+                    klo |= 1 << t
+                    diag = rows[t][jw]
+                    clo &= ~diag & (MASK32 << (t + 1)) & MASK32
+                    chi &= ~(diag >> 32) & MASK32
+                while chi:
+                    t = (chi & -chi).bit_length() - 1
+                    khi |= 1 << t
+                    chi &= ~(rows[32 + t][jw] >> 32) & (MASK32 << (t + 1))
+                    chi &= MASK32
+                kept = klo | khi << 32
+                for t in range(64):
+                    if (kept >> t) & 1:
+                        keep[b, 0, 64 * jw + t] = 1.0
+                for iw in range(jw + 1, wn):
+                    for t in range(64):
+                        if (kept >> t) & 1:
+                            removed[iw] |= rows[t][iw]
+    return keep, pairs
+
+
+def _valid_mask(kind, rng, b, k):
+    if kind == "dense":
+        return rng.uniform(size=(b, k)) < 0.8
+    if kind == "sparse":
+        return rng.uniform(size=(b, k)) < 0.05
+    if kind == "prefix":  # the main path's shape: valid is a prefix
+        return np.arange(k)[None, :] < rng.integers(0, k + 1, size=(b, 1))
+    if kind == "empty":
+        return np.zeros((b, k), bool)
+    if kind == "single":
+        v = np.zeros((b, k), bool)
+        v[np.arange(b), rng.integers(0, k, size=b)] = True
+        return v
+    if kind == "nan_first":  # a NaN confidence sorts first and is invalid
+        v = np.arange(k)[None, :] < rng.integers(1, k + 1, size=(b, 1))
+        v[:, 0] = False
+        return v
+    raise ValueError(kind)
+
+
+MASKS = ("dense", "sparse", "prefix", "empty", "single", "nan_first")
+MODEL_KS = (2, 63, 64, 65, 256, 300, 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_inputs(k):
+    """Per K, one batch with a row per mask kind (3 images each), the JAX
+    Pallas kernel's keep mask (interpret mode) and the plain version's."""
+    rng = np.random.default_rng(1000 + k)
+    per = 3
+    _, boxes = _random_detections(rng, k=per * len(MASKS) * k)
+    boxes_t = np.ascontiguousarray(
+        boxes.reshape(per * len(MASKS), k, 4).transpose(0, 2, 1))
+    valid = np.concatenate([_valid_mask(m, rng, per, k) for m in MASKS])
+    valid = valid[:, None, :].astype(np.float32)
+    want = np.asarray(jax_suppress(jnp.asarray(boxes_t), jnp.asarray(valid),
+                                   max_iou=0.5, interpret=True))
+    ref_keep = tnms.greedy_suppress_reference(
+        torch.from_numpy(boxes_t), torch.from_numpy(valid), max_iou=0.5)
+    np.testing.assert_array_equal(ref_keep.numpy(), want)
+    return boxes_t, valid, want, per
+
+
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("k", MODEL_KS)
+def test_kernel_model_matches_reference_and_pallas(k, mask):
+    """The kernel's algorithm, at the cluster sizes its launch picks for
+    B = 1, 16 and 64, gives exactly the greedy keep mask, and computes an
+    IoU only for pairs j < i < n with both candidates valid."""
+    boxes_t, valid, want, per = _model_inputs(k)
+    s = slice(MASKS.index(mask) * per, (MASKS.index(mask) + 1) * per)
+    for cluster in sorted({_cluster_size(b, k) for b in (1, 16, 64)}):
+        got, pairs = model_suppress(boxes_t[s], valid[s], 0.5, cluster)
+        np.testing.assert_array_equal(got, want[s])
+        nvalid = (valid[s, 0] > 0.5).sum(-1)
+        assert pairs == [int(v * (v - 1) // 2) for v in nvalid]
+
+
+def test_kernel_model_cluster_sizes():
+    """B * cluster fills 132 SMs, at most 8; small K takes fewer CTAs."""
+    assert [_cluster_size(b, 256) for b in (1, 16, 17, 33, 64, 132, 500)] == [
+        8, 8, 4, 4, 2, 1, 1]
+    assert [_cluster_size(16, k) for k in (2, 64, 65, 128, 256, 1024)] == [
+        1, 1, 2, 2, 8, 8]
+
+
+def test_kernel_model_duplicates_and_nan_boxes():
+    """Exact duplicates (IoU 1 with a later copy), NaN coordinates (IoU
+    NaN: never suppresses) and ill-formed boxes (zero area)."""
+    rng = np.random.default_rng(3)
+    _, boxes = _random_detections(rng, k=2 * 200)
+    boxes = boxes.reshape(2, 200, 4)
+    boxes[:, 50:60] = boxes[:, 40:50]
+    boxes[:, 100:110] = boxes[:, 0:1]
+    boxes[0, 120:125, 1] = np.nan
+    boxes[1, 130:140] = boxes[1, 130:140][:, [2, 3, 0, 1]]  # x1 < x0
+    boxes_t = np.ascontiguousarray(boxes.transpose(0, 2, 1))
+    valid = np.ones((2, 1, 200), np.float32)
+    want = tnms.greedy_suppress_reference(
+        torch.from_numpy(boxes_t), torch.from_numpy(valid)).numpy()
+    for cluster in (1, 2, 8):
+        np.testing.assert_array_equal(
+            model_suppress(boxes_t, valid, 0.5, cluster)[0], want)
+    pallas = np.asarray(jax_suppress(jnp.asarray(boxes_t), jnp.asarray(valid),
+                                     max_iou=0.5, interpret=True))
+    np.testing.assert_array_equal(want, pallas)
+    assert want[:, 0, 50:60].sum() == 0  # each a copy of a kept or removed one
+
+
+@pytest.mark.parametrize("max_iou", [0.0, -0.5])
+def test_kernel_model_skips_the_divide_exactly(max_iou):
+    """Where the intersection is +-0 the kernel decides without dividing:
+    +-0 / den is +-0 (> max_iou iff max_iou < 0) unless den is 0 or NaN.
+    Zero-area and NaN boxes reach each branch."""
+    rng = np.random.default_rng(5)
+    _, boxes = _random_detections(rng, k=130)
+    boxes[10:20, 2:] = boxes[10:20, :2]  # zero area: den = 1e-7 or 0
+    boxes[20:30] = 0.0  # zero boxes: den = 1e-7
+    boxes[30:35, 0] = np.nan
+    boxes_t = np.ascontiguousarray(boxes.T[None])
+    valid = np.ones((1, 1, 130), np.float32)
+    want = tnms.greedy_suppress_reference(
+        torch.from_numpy(boxes_t), torch.from_numpy(valid),
+        max_iou=max_iou).numpy()
+    for cluster in (1, 8):
+        np.testing.assert_array_equal(
+            model_suppress(boxes_t, valid, max_iou, cluster)[0], want)
+
+
+@pytest.mark.parametrize("sign", [1, -1])
+def test_kernel_model_strict_iou_boundary(sign):
+    boxes_t = np.array([[[0.0, 0.1], [0.0, 0.0], [0.2, 0.3], [0.2, 0.2]]],
+                       np.float32)
+    true_iou = (0.1 * 0.2) / (2 * 0.2 * 0.2 - 0.1 * 0.2 + 1e-7)
+    valid = np.ones((1, 1, 2), np.float32)
+    got, _ = model_suppress(boxes_t, valid, true_iou + sign * 1e-4, 1)
+    assert got[0, 0].tolist() == ([1, 1] if sign > 0 else [1, 0])
+
+
+@hypothesis.settings(max_examples=25, deadline=None, derandomize=True,
+                     database=None)
+@hypothesis.given(k=st.integers(1, 200), cluster=st.sampled_from([1, 2, 4, 8]),
+                  seed=st.integers(0, 2**32 - 1), density=st.floats(0, 1))
+def test_kernel_model_random_masks(k, cluster, seed, density):
+    rng = np.random.default_rng(seed)
+    _, boxes = _random_detections(rng, k=k)
+    boxes_t = np.ascontiguousarray(boxes.T[None])
+    valid = (rng.uniform(size=(1, 1, k)) < density).astype(np.float32)
+    want = tnms.greedy_suppress_reference(
+        torch.from_numpy(boxes_t), torch.from_numpy(valid)).numpy()
+    np.testing.assert_array_equal(
+        model_suppress(boxes_t, valid, 0.5, cluster)[0], want)
