@@ -26,7 +26,18 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    counts set to 0 just before and read just after; the same scores
    through the plain NMS must give an identical packed output. Then
    ms/batch and frames/s, and one RFB-640 batch of 4;
-5. the kernels line, the nvidia-smi line, and the final status line.
+5. the serving tier: the port's server in this process (RFB-320,
+   bfloat16, frozen weights, pixels decode, host annotation) under 16
+   senders at 30 fps for 10 s, with a /detections viewer per stream and a
+   /face_stream viewer on one; senders and viewers run in a child process
+   (``chip_smoke.py --load-generator HTTP_PORT SOCKET_PORT``). It reports
+   frames sent, inferred and dropped, frames/s, batch sizes, e2e latency
+   and stage means; NMS launches must equal batches dispatched, every
+   /face_stream part must decode to 640x480, and in a check round
+   before the window, with the card held back before each readback, the
+   detections the worker published must be bit-identical to run_device
+   on the same padded batches outside the worker;
+6. the kernels line, the nvidia-smi line, and the final status line.
 
 Needs one CUDA card and the repository's sources; imports nothing of JAX.
 """
@@ -614,6 +625,294 @@ def main_path(device) -> dict:
     }
 
 
+# -- phase 5: the serving tier ----------------------------------------------
+
+SERVE_STREAMS = 16
+SERVE_FPS = 30.0
+SERVE_SECONDS = 10.0
+SERVE_STAGES = ("decode", "upload", "device", "draw", "encode")
+SERVE_CHECK_FRAMES = 4  # per stream, in the check round before the window
+SERVE_LAG_CYCLES = 300_000_000  # ~0.15 s of the card after a checked batch
+SERVE_NAMES = [f"cam{i}" for i in range(SERVE_STREAMS)]
+
+
+class HttpViewer:
+    """One GET on a streaming endpoint of the server, its body gathered
+    as it arrives (into a bytearray: the MJPEG viewer takes tens of MB)."""
+
+    def __init__(self, reader, writer):
+        import asyncio
+
+        self._reader, self._writer = reader, writer
+        self.data = bytearray()
+        self._task = asyncio.ensure_future(self._read())
+
+    @classmethod
+    async def open(cls, port: int, path: str):
+        import asyncio
+
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+        await writer.drain()
+        return cls(reader, writer)
+
+    async def _read(self):
+        while chunk := await self._reader.read(1 << 16):
+            self.data += chunk
+
+    def body(self) -> bytes:
+        return bytes(self.data).split(b"\r\n\r\n", 1)[-1]
+
+    async def close(self):
+        import asyncio
+
+        self._writer.close()
+        self._task.cancel()
+        await asyncio.gather(self._task, return_exceptions=True)
+
+
+async def load_generator(http_port: int, socket_port: int) -> None:
+    """The serve phase's traffic, in a process of its own, as the edge
+    senders and viewers of a deployment are: a /detections viewer per
+    stream and a /face_stream viewer on stream 0. Each "send N" read from
+    stdin runs the port's sender on every stream for N frames at
+    SERVE_FPS and prints {"sent", "send_s"}; "stop" closes the viewers
+    and prints what they received."""
+    import asyncio
+
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.client.sender import ReplaySource, send_stream
+    from infercam_onnx_tpu_torch.config import ClientConfig
+    from infercam_onnx_tpu_torch.protocol import _MJPEG_HEADER
+
+    loop = asyncio.get_running_loop()
+
+    async def command() -> list[str]:
+        return (await loop.run_in_executor(None, sys.stdin.readline)).split()
+
+    dets = [await HttpViewer.open(http_port, f"/detections?name={n}")
+            for n in SERVE_NAMES]
+    faces = await HttpViewer.open(http_port,
+                                  f"/face_stream?name={SERVE_NAMES[0]}")
+    address = f"127.0.0.1:{socket_port}"
+    while (cmd := await command())[:1] == ["send"]:
+        start = time.perf_counter()
+        sent = sum(await asyncio.gather(*(
+            send_stream(ReplaySource(str(SYNTH_PICS), fps=SERVE_FPS),
+                        ClientConfig(address=address, channel=n),
+                        max_frames=int(cmd[1]))
+            for n in SERVE_NAMES)))
+        emit({"sent": sent, "send_s": time.perf_counter() - start})
+    for viewer in (*dets, faces):
+        await viewer.close()
+    parts = [p[:-4] for p in faces.body().split(_MJPEG_HEADER)[1:]
+             if p.endswith(b"\xff\xd9\r\n\r\n")]
+    emit({"records": [v.body().decode().split("\n")[:-1] for v in dets],
+          "face_parts": len(parts),
+          "face_part_shapes": sorted({codec.decode_rgb(p).shape
+                                      for p in parts})})
+
+
+async def _until(cond, timeout_s: float, what: str) -> None:
+    import asyncio
+
+    deadline = time.perf_counter() + timeout_s
+    while not cond():
+        if time.perf_counter() > deadline:
+            raise SystemExit(f"serve phase: {what} within {timeout_s} s")
+        await asyncio.sleep(0.01)
+
+
+def _detections(packed_row) -> list[dict]:
+    """The "detections" of the NDJSON record of one packed output row."""
+    return [{"bbox": [float(v) for v in packed_row[d, :4]],
+             "confidence": float(packed_row[d, 4])}
+            for d in range(int(packed_row[:, 5].sum()))]
+
+
+async def _serve(device) -> dict:
+    import asyncio
+
+    import torch
+
+    from infercam_onnx_tpu_torch.config import EngineConfig, ServerConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.serving.app import start_server
+    from infercam_onnx_tpu_torch.serving.meter import METER
+    from infercam_onnx_tpu_torch.serving.router import stream_key
+    from infercam_onnx_tpu_torch.utils.profiling import STAGES
+
+    det = Detector(weights=str(WEIGHTS), device=device)  # RFB-320, bfloat16
+    t0 = time.perf_counter()
+    server = await start_server(
+        # the phase drains the meter itself, once, after the window
+        ServerConfig(http_address="127.0.0.1:0", socket_address="127.0.0.1:0",
+                     meter_period_s=3600.0),
+        engine_config=EngineConfig(batch_buckets=(1, 2, 4, 8, 16),
+                                   queue_capacity=32, batch_window_ms=4.0,
+                                   coalesce_streams=True),
+        detector=det, warmup_resolutions=[(480, 640)])
+    warmup_s = time.perf_counter() - t0
+
+    worker, router = server.worker, server.router
+    keys = [stream_key(n) for n in SERVE_NAMES]
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, str(REPO / "chip_smoke.py"), "--load-generator",
+        str(server.http_port), str(server.socket_port), cwd=str(REPO),
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE)
+
+    async def send(frames: int) -> dict:
+        """One round of the load generator's senders, until every frame
+        sent was served or dropped (counted from the last meter drain)."""
+        proc.stdin.write(f"send {frames}\n".encode())
+        await proc.stdin.drain()
+        line = await asyncio.wait_for(proc.stdout.readline(),
+                                      SERVE_SECONDS + 60)
+        if not line:
+            raise SystemExit("serve phase: the load generator died")
+        load = json.loads(line)
+        await _until(
+            lambda: METER.inferred_unique + METER.dropped >= load["sent"],
+            10.0, "the frames sent were not all served or dropped")
+        return load
+
+    # The check round, before the measured window, records what the worker
+    # dispatched (each batch, and its streams in row order) and every
+    # NDJSON record it handed to a /detections broadcast. The card is held
+    # back after each batch's program, before its readback, for longer
+    # than a decode, so a publish stage that read the pinned output before
+    # the readback's event would publish a buffer the copy has not filled
+    # yet; without the lag the host, far slower than the card, never reads
+    # early.
+    dispatched, published = [], {}
+    device_stage, publish, run_device = (worker._device_stage,
+                                         worker._publish, det.run_device)
+
+    def device_tap(units):
+        dispatched.extend(([job.key for job, _ in u["members"]], u["batch"])
+                          for u in units)
+        return device_stage(units)
+
+    def publish_tap(chan, item):
+        if id(chan) in published:
+            published[id(chan)].append(item)
+        publish(chan, item)
+
+    def lagging_run_device(*args, **kwargs):
+        out = run_device(*args, **kwargs)
+        torch.cuda._sleep(SERVE_LAG_CYCLES)  # on the compute stream
+        return out
+
+    try:
+        def watched():
+            chans = [router._detections.get(k) for k in keys]
+            chans.append(router._inferred.get(keys[0]))
+            return all(c is not None and c.receiver_count for c in chans)
+
+        await _until(watched, 60.0, "the viewers did not subscribe")
+        det_chans = {k: router._detections[k] for k in keys}
+        published.update((id(c), []) for c in det_chans.values())
+        worker._device_stage, worker._publish = device_tap, publish_tap
+        det.run_device = lagging_run_device
+        METER.drain()
+        try:
+            await send(SERVE_CHECK_FRAMES)
+        finally:
+            worker._device_stage, worker._publish = device_stage, publish
+            del det.run_device
+
+        # the measured window, through the worker as it is
+        METER.drain()
+        STAGES.drain()
+        nms.kernel.launches = 0
+        start = time.perf_counter()
+        load = await send(int(SERVE_FPS * SERVE_SECONDS))
+        window_s = time.perf_counter() - start
+        launches = nms.kernel.launches
+        snap, stages = METER.drain(), STAGES.drain()
+        proc.stdin.write(b"stop\n")
+        await proc.stdin.drain()
+        load.update(json.loads(await asyncio.wait_for(proc.stdout.read(),
+                                                      60)))
+        await proc.wait()
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        await server.close()
+
+    records = [[json.loads(line) for line in lines]
+               for lines in load["records"]]
+    frame_ok = all(r["width"] == 640 and r["height"] == 480
+                   and all(d["confidence"] > det.config.min_confidence
+                           for d in r["detections"])
+                   for recs in records for r in recs)
+
+    # each checked batch's published records against run_device on the
+    # same padded batch outside the worker: a stream's n-th record is its
+    # row in the n-th batch that holds it
+    torch.cuda.synchronize()
+    identical, seen, ahead = [], 0, {k: 0 for k in keys}
+    viewer_lines = {k: set(lines) for k, lines in zip(keys,
+                                                      load["records"])}
+    for members, batch in dispatched:
+        want = det.run_device(batch, pack_output=True).cpu().numpy()
+        served = [published[id(det_chans[k])][ahead[k]] for k in members]
+        identical.append([json.loads(item)["detections"] for item in served]
+                         == [_detections(want[i])
+                             for i in range(len(members))])
+        seen += sum(item.decode().rstrip("\n") in viewer_lines[k]
+                    for k, item in zip(members, served))
+        for k in members:
+            ahead[k] += 1
+
+    e2e = stages.get("e2e", {})
+    return {
+        "model": "RFB-320", "dtype": "bfloat16", "streams": SERVE_STREAMS,
+        "fps_per_stream": SERVE_FPS, "frame": [640, 480],
+        "load_generator": "a child process: the port's senders and the "
+                          "HTTP viewers in one event loop",
+        "warmup_s": warmup_s, "send_s": load["send_s"], "window_s": window_s,
+        "frames_sent": load["sent"], "frames_inferred": snap["inferred_unique"],
+        "frames_dropped": snap["dropped"],
+        "inferred_fps": snap["inferred_unique"] / window_s,
+        "batches": snap["batches"], "mean_batch": snap["mean_batch"],
+        "nms_launches": launches,
+        "e2e_p50_ms": e2e.get("p50_ms"), "e2e_p99_ms": e2e.get("p99_ms"),
+        "stage_mean_ms": {s: stages[s]["total_ms"] / stages[s]["count"]
+                          for s in SERVE_STAGES if s in stages},
+        "stage_count": {s: stages[s]["count"] for s in SERVE_STAGES
+                        if s in stages},
+        "detection_records": [len(r) for r in records],
+        "detection_records_ok": frame_ok,
+        "face_parts": load["face_parts"],
+        "face_part_shapes": load["face_part_shapes"],
+        # the check round, before the window
+        "checked_batch_buckets": [int(b.shape[0]) for _, b in dispatched],
+        "checked_records": sum(len(m) for m, _ in dispatched),
+        "checked_records_seen_by_viewers": seen,
+        "checked_batches_lag_cycles": SERVE_LAG_CYCLES,
+        "served_identical_to_run_device": identical,
+    }
+
+
+def serve_phase(device) -> dict:
+    """The port's server in this process on ``device``: RFB-320 bfloat16
+    on the frozen weights, buckets 1-16, queue 32, a 4 ms gather window,
+    coalescing, pixels decode and host annotation, warmed up at 640x480.
+    The traffic comes from ``load_generator`` in a child process: 16 port
+    senders replay the synthetic pictures at 30 fps each, first for
+    SERVE_CHECK_FRAMES frames (the check round), then for 10 s (the
+    measured window); every stream has a /detections viewer, stream 0 a
+    /face_stream viewer too. The NMS launch count is set to 0 just before
+    the window's senders start and read once every frame sent was served
+    or dropped."""
+    import asyncio
+
+    return asyncio.run(_serve(device))
+
+
 def main() -> int:
     import torch
 
@@ -669,6 +968,24 @@ def main() -> int:
         raise SystemExit(f"main path launched the nms kernel "
                          f"{path['launches']['nms']} times, not once")
 
+    serve = serve_phase(device)
+    emit({"phase": "serve", "gpu": name, "power_limit": power, **serve})
+    if not serve["frames_inferred"]:
+        raise SystemExit("the server inferred no frame")
+    if serve["nms_launches"] != serve["batches"]:
+        raise SystemExit(f"the server launched the nms kernel "
+                         f"{serve['nms_launches']} times for "
+                         f"{serve['batches']} batches")
+    if not serve["face_parts"] or serve["face_part_shapes"] != [[480, 640, 3]]:
+        raise SystemExit(f"/face_stream parts are not all 640x480: "
+                         f"{serve['face_part_shapes']}")
+    if not min(serve["detection_records"]) or not serve["detection_records_ok"]:
+        raise SystemExit("a /detections viewer got no or malformed records")
+    ident = serve["served_identical_to_run_device"]
+    if not ident or not all(ident):
+        raise SystemExit("a served batch differs from run_device on the same "
+                         "padded batch")
+
     head = ktime["a_random_b16_k256"]
     emit({"kernels": [{
         "name": "nms_greedy_suppress", "route": "cuda",
@@ -678,6 +995,9 @@ def main() -> int:
                       "valid-pairs bitmask; the scan resolves 64 candidates "
                       "at a time",
         "launches": path["launches"]["nms"],
+        # each path's launches, its count set to 0 just before it
+        "launches_by_path": {"detect_program": path["launches"]["nms"],
+                             "serve": serve["nms_launches"]},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
         # at input (a), B=16 K=256 random boxes, as in the first version
@@ -695,4 +1015,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--load-generator"]:  # the serve phase's child
+        import asyncio
+
+        asyncio.run(load_generator(int(sys.argv[2]), int(sys.argv[3])))
+        sys.exit(0)
     sys.exit(main())

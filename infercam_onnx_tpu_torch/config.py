@@ -1,14 +1,17 @@
-"""Detector configuration, device selection and float32 precision.
+"""Configuration, device selection and float32 precision.
 
-``DetectorConfig`` mirrors ``infercam_onnx_tpu/config.py:DetectorConfig``
-with the same defaults (the reference's serve-time setup: RFB-320,
-max_iou 0.5, min_confidence 0.5).
+``DetectorConfig``, ``EngineConfig``, ``ServerConfig`` and
+``ClientConfig`` mirror ``infercam_onnx_tpu/config.py`` with the same
+names and defaults (the reference's serve-time setup: RFB-320, max_iou
+0.5, min_confidence 0.5, JPEG quality 95 at 4:2:0, ingest capacity 200,
+broadcast rings of 20), for the fields the ported serving path reads.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -25,6 +28,95 @@ class DetectorConfig:
     max_detections: int = 64
     # dtype of the conv trunk; float32 is used by parity tests.
     compute_dtype: str = "bfloat16"
+
+
+# Decode and annotate modes of the JAX package that the port does not have
+# yet, with the ROADMAP item that ports each.
+_UNPORTED_DECODE = {"ycbcr": "ROADMAP A.3 (packed-YCbCr input)",
+                    "coefficients": "ROADMAP A.5 (coefficients and splice)"}
+_UNPORTED_ANNOTATE = {"device": "ROADMAP A.4 (device annotate tail)"}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Micro-batching inference engine configuration."""
+
+    # A batch of N frames runs padded to the smallest bucket >= N.
+    batch_buckets: Sequence[int] = (1, 2, 4, 8, 16)
+    # Bounded device work queue; frames are DROPPED when it is full
+    # (the reference's try_send backpressure, infer channel cap 10).
+    queue_capacity: int = 10
+    # Max time to wait for more frames before dispatching a partial batch.
+    batch_window_ms: float = 4.0
+    # Keep only the newest frame per stream within a gather window; False
+    # batches every queued frame, several of one stream per batch.
+    coalesce_streams: bool = True
+    # Decode incoming JPEGs at 1/decode_scale resolution (PIL draft mode).
+    decode_scale: int = 1
+    # "pixels": host JPEG decode feeds uint8 RGB frames to the device. The
+    # JAX package's "ycbcr" and "coefficients" modes are not ported yet.
+    decode_mode: str = "pixels"
+    # "host": /face_stream frames are drawn and JPEG-encoded on the host.
+    # The JAX package's default "device" (overlay and FDCT on the device)
+    # is not ported yet; asking for it raises instead of falling back.
+    annotate_mode: str = "host"
+
+    def __post_init__(self):
+        for field, value, unported, ported in (
+                ("decode_mode", self.decode_mode, _UNPORTED_DECODE,
+                 "pixels"),
+                ("annotate_mode", self.annotate_mode, _UNPORTED_ANNOTATE,
+                 "host")):
+            if value in unported:
+                raise NotImplementedError(
+                    f"{field}={value!r} is not ported to PyTorch yet "
+                    f"({unported[value]}); use {ported!r}")
+            if value != ported:
+                raise ValueError(f"unknown {field} {value!r}")
+        if not self.batch_buckets or min(self.batch_buckets) < 1:
+            raise ValueError(f"bad batch_buckets {self.batch_buckets!r}")
+        if self.decode_scale not in (1, 2, 4, 8):
+            raise ValueError(f"decode_scale must be 1, 2, 4 or 8, got "
+                             f"{self.decode_scale}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    """Serving tier configuration (TCP ingest + HTTP MJPEG). Port 0 in
+    either address binds a free port; `serving.app.InferServer` reads it
+    back."""
+
+    http_address: str = "127.0.0.1:3000"
+    socket_address: str = "127.0.0.1:3001"
+    # Ingest channel capacity (the reference's StaticChannel<_, 200>).
+    ingest_capacity: int = 200
+    # Broadcast ring capacity per subscriber.
+    broadcast_capacity: int = 20
+    # Frames processed per router subscriber-map refresh.
+    router_refresh_every: int = 4
+    # Output JPEG encoding (the reference's quality 95, 4:2:0).
+    jpeg_quality: int = 95
+    jpeg_subsampling: str = "420"
+    # FPS meter log period in seconds.
+    meter_period_s: float = 2.0
+    # Scale relative boxes by these (width, height) when drawing instead
+    # of the decoded frame's own size (the reference hard-codes 1280x720).
+    assume_frame_dims: tuple[int, int] | None = None
+    # Re-exec the server process when its RSS exceeds this many MiB
+    # (0 = off); senders reconnect after their backoff.
+    max_rss_mb: int = 0
+    # How often the RSS watchdog samples, in seconds.
+    rss_check_period_s: float = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class ClientConfig:
+    """Edge sender configuration."""
+
+    address: str = "127.0.0.1:3001"
+    channel: str = "simon"
+    reconnect_backoff_s: float = 3.0
+    camera_device: str = "/dev/video0"
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

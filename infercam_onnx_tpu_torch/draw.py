@@ -42,12 +42,15 @@ def _font() -> ImageFont.ImageFont:
 def draw_detections(
     frame: np.ndarray,
     detections: Sequence[tuple[np.ndarray, float]],
+    dims: tuple[int, int] | None = None,
 ) -> np.ndarray:
-    """Draw boxes + confidence labels, scaling the relative coords by the
-    frame's own size; returns a new [H, W, 3] uint8 array."""
+    """Draw boxes + confidence labels; returns a new [H, W, 3] uint8 array.
+
+    ``dims``: the (width, height) that scales the relative coords; None
+    uses the frame's own size (the reference hard-codes 1280x720)."""
     img = Image.fromarray(frame)
     d = ImageDraw.Draw(img)
-    width, height = img.width, img.height
+    width, height = dims if dims is not None else (img.width, img.height)
     font = _font()
     for bbox, confidence in detections:
         x_tl = int(bbox[0] * width)

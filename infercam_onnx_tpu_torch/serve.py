@@ -1,0 +1,203 @@
+"""Inference server CLI (the port of ``infercam_onnx_tpu/serve.py``).
+
+Usage::
+
+    python -m infercam_onnx_tpu_torch.serve \
+        [--device cuda|cpu] [--weights model.npz] \
+        [--server-address 127.0.0.1:3000] [--socket-address 127.0.0.1:3001] \
+        [--preset reference|throughput|lossless|latency] \
+        [--variant RFB-320|RFB-640|slim-320|slim-640] \
+        [--min-confidence 0.5] [--max-iou 0.5] [--top-k 256] \
+        [--max-detections 64] [--max-batch 16] [--batch-window-ms 4] \
+        [--queue-capacity 10] [--no-coalesce] \
+        [--warmup 640x480,1280x720] [--warmup-sync] [--decode-scale 1] \
+        [--assume-frame-dims 1280x720] [--max-rss-mb N] \
+        [--profile-dir DIR]
+
+The flags are the JAX server's for the ported path: pixels decode, host
+annotation, one device. ``--device`` picks the device (``cuda`` unless
+asked otherwise); without ``--weights`` the weights are the detector's
+seeded random ones. Port 0 in an address binds a free port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import faulthandler
+import logging
+import signal
+import sys
+
+# Named flag bundles (an explicitly passed flag wins over the preset),
+# as in the JAX server. The three tuned bundles name the ycbcr decode
+# mode, which the port does not have yet: choosing one is an error
+# unless --decode-mode pixels is passed beside it.
+PRESETS: dict[str, dict] = {
+    "reference": {},
+    "throughput": dict(decode_mode="ycbcr", decode_scale=2,
+                       queue_capacity=48, max_batch=16,
+                       batch_window_ms=6.0, warmup_async=True,
+                       warmup="640x480"),
+    "lossless": dict(decode_mode="ycbcr", decode_scale=2,
+                     queue_capacity=96, max_batch=32,
+                     batch_window_ms=15.0, no_coalesce=True,
+                     warmup_async=True, warmup="640x480"),
+    "latency": dict(decode_mode="ycbcr", decode_scale=1,
+                    queue_capacity=4, max_batch=2,
+                    batch_window_ms=0.0, warmup="640x480"),
+}
+
+
+def bucket_ladder(max_batch: int) -> list[int]:
+    """Doubling batch-size ladder capped at ``max_batch`` (a cap that is
+    not a power of two never dispatches a larger padded batch)."""
+    buckets = [1]
+    while buckets[-1] < max_batch:
+        buckets.append(min(buckets[-1] * 2, max_batch))
+    return buckets
+
+
+def _dims(spec: str) -> tuple[int, int]:
+    """"WxH" -> (w, h)."""
+    w, h = spec.lower().split("x")
+    return int(w), int(h)
+
+
+def main(argv: list[str] | None = None) -> int:
+    # allow_abbrev=False: presets find the explicitly passed flags by
+    # name, which an abbreviation would evade
+    ap = argparse.ArgumentParser(
+        description="Serve face detection on the PyTorch port.",
+        allow_abbrev=False)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--weights", default=None,
+                    help=".npz weights: upstream names or the JAX "
+                         "package's checkpoint layout")
+    ap.add_argument("--server-address", default="127.0.0.1:3000",
+                    help="HTTP address (default %(default)s)")
+    ap.add_argument("--socket-address", default="127.0.0.1:3001",
+                    help="TCP ingest address (default %(default)s)")
+    ap.add_argument("--variant", default="RFB-320",
+                    choices=["RFB-320", "RFB-640", "slim-320", "slim-640"])
+    ap.add_argument("--min-confidence", type=float, default=0.5)
+    ap.add_argument("--max-iou", type=float, default=0.5)
+    ap.add_argument("--top-k", type=int, default=256)
+    ap.add_argument("--max-detections", type=int, default=64)
+    ap.add_argument("--batch-window-ms", type=float, default=4.0)
+    ap.add_argument("--max-batch", type=int, default=16)
+    ap.add_argument("--queue-capacity", type=int, default=10,
+                    help="bounded infer queue; frames drop when it is full "
+                         "(the reference's cap of 10). Raise it to at least "
+                         "--max-batch for full batches under load")
+    ap.add_argument("--max-rss-mb", type=int, default=0,
+                    help="re-exec the server when its RSS exceeds this "
+                         "many MiB (0 = off); senders reconnect")
+    ap.add_argument("--rss-check-period", type=float, default=10.0,
+                    help="seconds between RSS watchdog checks")
+    ap.add_argument("--no-coalesce", action="store_true",
+                    help="batch every queued frame instead of the newest "
+                         "per stream")
+    ap.add_argument("--warmup", default="",
+                    help="comma-separated WxH resolutions to warm up "
+                         "before traffic, e.g. 640x480,1280x720")
+    ap.add_argument("--warmup-async", dest="warmup_async",
+                    action="store_true", default=True,
+                    help="open the listeners at once and warm up on the "
+                         "device thread meanwhile (the default)")
+    ap.add_argument("--warmup-sync", dest="warmup_async",
+                    action="store_false",
+                    help="open the listeners only after the warm-up")
+    ap.add_argument("--decode-mode", default="pixels",
+                    choices=["pixels", "coefficients", "ycbcr"],
+                    help="only pixels is ported; the others are an error")
+    ap.add_argument("--decode-scale", type=int, default=1,
+                    choices=[1, 2, 4, 8],
+                    help="decode incoming JPEGs at 1/N resolution "
+                         "(annotated output is then scaled too)")
+    ap.add_argument("--annotate", default="host", choices=["device", "host"],
+                    help="host: draw and JPEG-encode on the host; device "
+                         "is not ported and is an error")
+    ap.add_argument("--assume-frame-dims", default=None,
+                    help="scale drawn boxes by WxH instead of the decoded "
+                         "frame's size (the reference hard-codes 1280x720)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="write a torch.profiler trace of the run here")
+    ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
+                    help="named flag bundle (explicit flags override)")
+    ap.add_argument("--log-level", default="INFO")
+    args = ap.parse_args(argv)
+
+    if args.preset:
+        tokens = argv if argv is not None else sys.argv[1:]
+        # flag spellings -> argparse dests, so --warmup-sync counts as
+        # setting warmup_async
+        flag_dest = {opt[2:].replace("-", "_"): action.dest
+                     for action in ap._actions
+                     for opt in action.option_strings
+                     if opt.startswith("--")}
+        passed = {flag_dest.get(name, name) for name in
+                  (t.split("=", 1)[0][2:].replace("-", "_")
+                   for t in tokens if t.startswith("--"))}
+        for key, value in PRESETS[args.preset].items():
+            if key not in passed:
+                setattr(args, key, value)
+
+    from infercam_onnx_tpu_torch.config import (DetectorConfig, EngineConfig,
+                                                ServerConfig)
+    from infercam_onnx_tpu_torch.serving.app import serve_forever
+    from infercam_onnx_tpu_torch.utils.profiling import device_trace
+
+    try:
+        engine_config = EngineConfig(
+            batch_buckets=tuple(bucket_ladder(args.max_batch)),
+            batch_window_ms=args.batch_window_ms,
+            queue_capacity=args.queue_capacity,
+            coalesce_streams=not args.no_coalesce,
+            decode_scale=args.decode_scale,
+            decode_mode=args.decode_mode,
+            annotate_mode=args.annotate)
+    except NotImplementedError as e:
+        where = f" (preset {args.preset})" if args.preset else ""
+        ap.error(f"{e}{where}")
+
+    logging.basicConfig(
+        level=args.log_level.upper(),
+        format="%(asctime)s.%(msecs)03d %(levelname)s %(name)s: "
+               "%(message)s",
+        datefmt="%Y-%m-%dT%H:%M:%S")
+    faulthandler.register(signal.SIGUSR1)  # SIGUSR1 dumps thread stacks
+
+    warmup = []
+    for spec in filter(None, args.warmup.split(",")):
+        w, h = _dims(spec)
+        warmup.append((h, w))
+
+    with device_trace(args.profile_dir):
+        try:
+            asyncio.run(serve_forever(
+                server_config=ServerConfig(
+                    http_address=args.server_address,
+                    socket_address=args.socket_address,
+                    assume_frame_dims=(_dims(args.assume_frame_dims)
+                                       if args.assume_frame_dims else None),
+                    max_rss_mb=args.max_rss_mb,
+                    rss_check_period_s=args.rss_check_period),
+                detector_config=DetectorConfig(
+                    variant=args.variant,
+                    min_confidence=args.min_confidence,
+                    max_iou=args.max_iou,
+                    top_k=args.top_k,
+                    max_detections=args.max_detections),
+                engine_config=engine_config,
+                warmup_resolutions=warmup or None,
+                warmup_async=args.warmup_async,
+                device=args.device,
+                weights=args.weights))
+        except KeyboardInterrupt:
+            pass
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,236 @@
+"""Server wiring (``infercam_onnx_tpu/serving/app.py``; the reference's
+infer_server binary): ingest queue, data socket, router, micro-batched
+inference worker, HTTP endpoints and meter logger as asyncio tasks in one
+process, on one device.
+
+The port serves from one device: there is no mesh and no lockstep
+dispatch (ROADMAP A.7), and no link probe, which only re-routes the
+ycbcr and coefficients decode modes (ROADMAP A.3 and A.5).
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import logging
+import os
+import signal
+import sys
+
+import torch
+
+from infercam_onnx_tpu_torch.config import (
+    DetectorConfig,
+    EngineConfig,
+    ServerConfig,
+)
+from infercam_onnx_tpu_torch.detector import Detector
+from infercam_onnx_tpu_torch.serving.data_socket import (DataSocket,
+                                                         spawn_data_socket)
+from infercam_onnx_tpu_torch.serving.http import HttpServer
+from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+from infercam_onnx_tpu_torch.serving.meter import meter_logger
+from infercam_onnx_tpu_torch.serving.router import FrameRouter
+
+log = logging.getLogger("infercam.app")
+
+
+@dataclasses.dataclass
+class InferServer:
+    """Running server handle (owned tasks + listeners)."""
+
+    router: FrameRouter
+    worker: InferenceWorker
+    http: HttpServer
+    tasks: list[asyncio.Task]
+    data_server: DataSocket
+
+    @property
+    def http_port(self) -> int:
+        return self.http.port
+
+    @property
+    def socket_port(self) -> int:
+        return self.data_server.port
+
+    async def close(self) -> None:
+        # closes the listener AND the senders' connections, so senders
+        # see the shutdown and enter their reconnect loop
+        self.data_server.close()
+        await self.http.close()
+        for t in self.tasks:
+            t.cancel()
+        await asyncio.gather(*self.tasks, return_exceptions=True)
+        # let the stage threads finish the batches they hold
+        await asyncio.get_running_loop().run_in_executor(
+            None, self.worker.close)
+        try:
+            await asyncio.wait_for(self.data_server.wait_closed(), 5.0)
+        except asyncio.TimeoutError:
+            pass
+
+
+def _split_addr(addr: str) -> tuple[str, int]:
+    host, _, port = addr.rpartition(":")
+    return host or "127.0.0.1", int(port)
+
+
+def topology(detector: Detector) -> dict:
+    """What /stats and /metrics report of the deployment."""
+    dev = detector.device
+    return {
+        "devices": 1,
+        "platform": "gpu" if dev.type == "cuda" else "cpu",
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "detector": type(detector).__name__,
+    }
+
+
+async def start_server(
+    server_config: ServerConfig = ServerConfig(),
+    detector_config: DetectorConfig = DetectorConfig(),
+    engine_config: EngineConfig = EngineConfig(),
+    detector: Detector | None = None,
+    warmup_resolutions: list[tuple[int, int]] | None = None,
+    warmup_async: bool = False,
+    device: str | torch.device = "cuda",
+    weights: str | None = None,
+) -> InferServer:
+    """Start every task of the server and return its handle.
+
+    Without ``detector`` one is built from ``detector_config`` on
+    ``device`` (with the .npz ``weights``, else random ones). The warm-up
+    (`InferenceWorker.warmup` over ``warmup_resolutions``) runs on the
+    worker's device thread: before the listeners open, or with
+    ``warmup_async`` while they already serve (raw streams flow at once,
+    inference starts when it ends; /stats says "warming" meanwhile)."""
+    if detector is None:
+        detector = Detector(detector_config, weights=weights, device=device)
+
+    worker = InferenceWorker(detector, engine_config, server_config)
+    router = FrameRouter(worker.submit, server_config)
+    queue: asyncio.Queue = asyncio.Queue(
+        maxsize=server_config.ingest_capacity)
+
+    def warm():
+        try:
+            if warmup_resolutions:
+                log.info("warming up for %s", warmup_resolutions)
+                worker.warmup(warmup_resolutions)
+                log.info("device warm-up complete")
+        finally:
+            worker.warming = False
+
+    worker.warming = True
+    # the device executor has one thread, so the warm-up ends before any
+    # batch is dispatched
+    warm_fut = asyncio.get_running_loop().run_in_executor(
+        worker._device_exec, warm)
+    if warmup_async:
+        def _warm_done(f):
+            # a failed warm-up must not leave the server silently warm
+            if not f.cancelled() and f.exception() is not None:
+                log.error("device warm-up FAILED: %r", f.exception())
+
+        warm_fut.add_done_callback(_warm_done)
+    else:
+        await warm_fut
+
+    host, port = _split_addr(server_config.socket_address)
+    data_server = await spawn_data_socket(queue, host, port)
+
+    http = HttpServer(router, topology=topology(detector),
+                      warming=lambda: worker.warming)
+    hhost, hport = _split_addr(server_config.http_address)
+    await http.start(hhost, hport)
+
+    async def supervised(name: str, factory, *, backoff_s: float = 1.0):
+        """Restart a crashed core task after a backoff (the reference's
+        inference task dies silently on a panic)."""
+        while True:
+            try:
+                await factory()
+                return  # clean exit
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("%s task crashed; restarting in %.1fs",
+                              name, backoff_s)
+                await asyncio.sleep(backoff_s)
+
+    tasks = [
+        asyncio.create_task(
+            supervised("router", lambda: router.run(queue)),
+            name="router"),
+        asyncio.create_task(
+            supervised("inferer", worker.run), name="inferer"),
+        asyncio.create_task(
+            supervised("meter", lambda: meter_logger(
+                server_config.meter_period_s)), name="meter"),
+    ]
+    if server_config.max_rss_mb:
+        tasks.append(asyncio.create_task(
+            rss_watchdog(server_config.max_rss_mb,
+                         server_config.rss_check_period_s),
+            name="rss-watchdog"))
+    return InferServer(router=router, worker=worker, http=http, tasks=tasks,
+                       data_server=data_server)
+
+
+def _read_rss_mb() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return 0.0
+
+
+def _reexec() -> None:
+    """Replace this process with a fresh copy of itself. Every fd closes
+    on exec, so the listeners free their ports and senders reconnect."""
+    # sys.orig_argv is the interpreter's own command line ("-m module"
+    # included); execv needs an absolute interpreter path
+    argv = [sys.executable] + list(sys.orig_argv[1:])
+    log.warning("re-executing: %s", argv)
+    os.execv(argv[0], argv)
+
+
+async def rss_watchdog(max_rss_mb: int, period_s: float = 10.0,
+                       *, read_rss=_read_rss_mb,
+                       on_breach=_reexec) -> None:
+    """Re-exec the process when its RSS crosses the cap (a guard against
+    a leaking dependency; senders see a short restart)."""
+    while True:
+        await asyncio.sleep(period_s)
+        rss = read_rss()
+        if rss > max_rss_mb:
+            log.warning("RSS %.0f MiB exceeds cap %d MiB; recycling "
+                        "server process", rss, max_rss_mb)
+            on_breach()
+            return
+
+
+async def serve_forever(**kwargs) -> None:
+    """`start_server` and serve until SIGTERM or a core task's terminal
+    failure; then close."""
+    server = await start_server(**kwargs)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    try:
+        loop.add_signal_handler(signal.SIGTERM, stop.set)
+    except (NotImplementedError, RuntimeError):  # non-unix / nested loop
+        pass
+    try:
+        waiter = asyncio.create_task(stop.wait())
+        done, _ = await asyncio.wait(
+            {waiter, *server.tasks},
+            return_when=asyncio.FIRST_COMPLETED)
+        if waiter in done:
+            log.info("SIGTERM received; shutting down")
+        waiter.cancel()
+        for t in done - {waiter}:
+            if not t.cancelled() and t.exception() is not None:
+                raise t.exception()
+    finally:
+        await server.close()

@@ -1,4 +1,5 @@
-"""The hand CUDA kernels against their plain versions, on the card.
+"""The hand CUDA kernels against their plain versions, and the serving
+worker's stream-ordered transfers, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -9,6 +10,7 @@ installed::
         tests/test_torch_port_cuda.py
 """
 
+import json
 import pathlib
 
 import numpy as np
@@ -168,3 +170,154 @@ def test_detector_on_cuda_matches_cpu_f32(cuda):
         matmul.fp32_precision, conv.fp32_precision = saved
     assert torch.equal(got[..., 5], want[..., 5])
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# -- the serving worker's transfers -----------------------------------------
+
+
+def _burst_jpegs(n: int) -> list[bytes]:
+    """n JPEGs of the synthetic pictures, plain and mirrored, in turn."""
+    from infercam_onnx_tpu_torch import codec
+
+    pics = list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic")).values())
+    frames = pics + [np.ascontiguousarray(p[:, ::-1]) for p in pics]
+    jpegs = [codec.encode_rgb(f) for f in frames]
+    return [jpegs[i % len(jpegs)] for i in range(n)]
+
+
+# clock cycles the card spins after each served batch's program: about
+# 20 ms, far longer than the host takes from the readback's enqueue to the
+# publish stage's first read
+LAG_CYCLES = 40_000_000
+
+
+def _serve_burst(det, jpegs, *, publish_delay_s: float):
+    """Submit every JPEG at once to an InferenceWorker (no coalescing,
+    buckets up to 16) and run it until all are published. Returns the
+    worker, the device batches it dispatched with their frame counts,
+    whether each batch's readback landed in pinned memory, the NDJSON
+    records a /detections subscriber received (in publish order, which is
+    dispatch order), and the most batches that were between upload and
+    publish at once. ``publish_delay_s`` holds each publish back, so
+    uploads and dispatches run ahead of it. The card is held back after
+    each batch's program, before its readback (``LAG_CYCLES``): a publish
+    stage that read the pinned output before the readback's event would
+    read a buffer the copy has not filled yet."""
+    import asyncio
+    import time
+
+    from infercam_onnx_tpu_torch.config import EngineConfig
+    from infercam_onnx_tpu_torch.serving.broadcast import Broadcast
+    from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+    from infercam_onnx_tpu_torch.serving.router import InferJob
+
+    batches, pinned, records, inflight = [], [], [], [0, 0]
+
+    async def run():
+        worker = InferenceWorker(det, EngineConfig(
+            batch_buckets=(1, 2, 4, 8, 16), queue_capacity=len(jpegs),
+            batch_window_ms=20.0, coalesce_streams=False))
+        decode, dispatch = worker._decode, worker._device_stage
+        publish = worker._publish_results
+
+        def decode_tap(jobs):
+            units = decode(jobs)
+            inflight[0] += len(units)
+            inflight[1] = max(inflight)
+            return units
+
+        def dispatch_tap(units):
+            batches.extend((u["batch"], u["n"]) for u in units)
+            return dispatch(units)
+
+        def publish_tap(results):
+            time.sleep(publish_delay_s)
+            pinned.extend(e["packed"].is_pinned() for e in results)
+            publish(results)
+            inflight[0] -= len(results)
+
+        worker._decode, worker._device_stage = decode_tap, dispatch_tap
+        worker._publish_results = publish_tap
+        chan = Broadcast(capacity=len(jpegs))  # the test reads every record
+        sub = chan.subscribe()
+        task = asyncio.ensure_future(worker.run())
+        for i, data in enumerate(jpegs):
+            assert worker.submit(InferJob(i, data, None, chan))
+        for _ in jpegs:  # one NDJSON record per frame
+            records.append(json.loads(
+                await asyncio.wait_for(sub.receive(), 60)))
+        task.cancel()
+        await asyncio.gather(task, return_exceptions=True)
+        worker.close()
+        return worker
+
+    run_device = det.run_device
+
+    def lagging_run_device(*args, **kwargs):
+        out = run_device(*args, **kwargs)
+        torch.cuda._sleep(LAG_CYCLES)  # on the worker's compute stream
+        return out
+
+    det.run_device = lagging_run_device
+    try:
+        worker = asyncio.run(run())
+    finally:
+        del det.run_device
+    torch.cuda.synchronize()
+    return worker, batches, pinned, records, inflight[1]
+
+
+def _detections(packed_row: np.ndarray) -> list[dict]:
+    """The "detections" of the NDJSON record of one packed output row."""
+    return [{"bbox": [float(v) for v in packed_row[d, :4]],
+             "confidence": float(packed_row[d, 4])}
+            for d in range(int(packed_row[:, 5].sum()))]
+
+
+@pytest.mark.parametrize("n, publish_delay_s", [(5, 0.0), (64, 0.2)])
+def test_served_output_bit_identical_to_run_device(cuda, n, publish_delay_s):
+    """The detections the worker published for each frame (pinned upload
+    on its copy stream, compute stream, non-blocking readback read after
+    its event) are run_device's on the same padded batch outside the
+    worker, bit for bit: one small batch, and a burst of four batches of
+    16 with the publish stage held back so that at least three are in
+    flight at once."""
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    det.warmup(16, 480, 640)
+    worker, batches, pinned, records, most_inflight = _serve_burst(
+        det, _burst_jpegs(n), publish_delay_s=publish_delay_s)
+    assert len(batches) == len(pinned) == (1 if n == 5 else 4)
+    assert all(pinned)
+    if n == 64:
+        assert most_inflight >= 3
+    assert sum(count for _, count in batches) == len(records) == n
+    row = 0
+    for batch, count in batches:
+        assert batch.device == cuda and batch.dtype == torch.uint8
+        want = det.run_device(batch, pack_output=True).cpu().numpy()
+        served = [r["detections"] for r in records[row:row + count]]
+        assert served == [_detections(want[i]) for i in range(count)]
+        assert any(served)
+        row += count
+
+
+def test_nms_kernel_runs_on_the_workers_compute_stream(cuda, monkeypatch):
+    """Every NMS launch of the served batches is on the worker's compute
+    stream, not the default stream."""
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    det.warmup(16, 480, 640)
+    real, streams = nms.kernel, []
+
+    def spy(boxes_t, valid, max_iou):
+        streams.append(torch.cuda.current_stream())
+        return real(boxes_t, valid, max_iou)
+
+    monkeypatch.setattr(nms, "kernel", spy)
+    worker, batches, _, _, _ = _serve_burst(det, _burst_jpegs(20),
+                                            publish_delay_s=0.0)
+    assert len(streams) == len(batches) >= 2
+    assert all(s == worker._compute_stream for s in streams)
+    assert worker._compute_stream != torch.cuda.default_stream(cuda)

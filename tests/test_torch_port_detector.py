@@ -9,6 +9,7 @@ magnitude ~10 by ~1e-4; near a score of 0.5 the softmax's slope (0.25)
 turns that into up to 2.8e-5 (seen on synthetic-1, score 0.5036).
 """
 
+import ast
 import json
 import os
 import pathlib
@@ -187,3 +188,49 @@ def test_port_imports_no_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert len(modules) >= 12
     assert result["bad"] == []
+
+
+def _forbidden(module: str) -> bool:
+    root = module.split(".")[0]
+    return root.startswith("jax") or root == "infercam_onnx_tpu"
+
+
+def _imports(tree: ast.AST):
+    """(line, module) of every import in ``tree``, at any depth: import
+    statements inside functions included, and importlib.import_module /
+    __import__ calls with a literal name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+                node.args[0], ast.Constant) and isinstance(
+                node.args[0].value, str):
+            fn = node.func
+            name = (fn.attr if isinstance(fn, ast.Attribute)
+                    else getattr(fn, "id", ""))
+            if name in ("import_module", "__import__"):
+                yield node.lineno, node.args[0].value
+
+
+def test_port_sources_import_no_jax_at_any_depth():
+    """Every .py of the port, and chip_smoke.py, read as source: no
+    import of jax or of the JAX package anywhere in them, including the
+    imports inside functions that only run on some paths (the subprocess
+    test above sees only what importing the modules pulls in)."""
+    files = sorted((REPO / "infercam_onnx_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 25
+    bad = [f"{path.relative_to(REPO)}:{line}: {module}"
+           for path in files
+           for line, module in _imports(ast.parse(path.read_text()))
+           if _forbidden(module)]
+    assert bad == []
+    # the scan sees lazy imports and import_module calls
+    probe = ast.parse("def f():\n    import jax.numpy\n"
+                      "    from infercam_onnx_tpu.serving import link\n"
+                      "    importlib.import_module('jaxlib')\n")
+    assert [m for _, m in _imports(probe) if _forbidden(m)] == [
+        "jax.numpy", "infercam_onnx_tpu.serving", "jaxlib"]

@@ -1,0 +1,664 @@
+"""The port's serving tier against the JAX package, live on the CPU.
+
+Protocol bytes, stream keys, the bucket ladder and the presets must equal
+the JAX package's exactly. The live tests start the port's server with
+``device="cpu"`` (RFB-320, float32, the frozen weights), feed it with the
+port's sender and read its HTTP endpoints; every listener binds port 0
+and the tests read the port back from the socket.
+
+Served ``/detections`` records of the four synthetic 640x480 pictures
+must equal JAX ``Detector.detect_batch`` on the same decoded frames:
+counts equal, boxes within 1e-5, confidences within 5e-5 (the tolerances
+of ``tests/test_torch_port_detector.py``: the two CPU conv trunks sum in
+different orders). An annotated part must be the port codec's encoding
+of JAX ``draw_detections`` on those detections: the same JPEG bytes, or,
+where a box edge or a label's last digit falls on the other side of a
+pixel or rounding boundary within those tolerances, decoded pixels that
+differ in at most 0.2% of the values.
+"""
+
+import asyncio
+import contextlib
+import json
+import time
+
+import numpy as np
+import pytest
+
+from infercam_onnx_tpu import codec as jcodec
+from infercam_onnx_tpu import protocol as jproto
+from infercam_onnx_tpu import serve as jserve
+from infercam_onnx_tpu.client import sender as jsender
+from infercam_onnx_tpu.config import DetectorConfig as JDetectorConfig
+from infercam_onnx_tpu.detector import Detector as JDetector
+from infercam_onnx_tpu.draw import draw_detections as jdraw_detections
+from infercam_onnx_tpu.models import convert as jconvert
+from infercam_onnx_tpu.serving.router import stream_key as jstream_key
+from infercam_onnx_tpu_torch import codec
+from infercam_onnx_tpu_torch import draw as tdraw
+from infercam_onnx_tpu_torch import protocol as tproto
+from infercam_onnx_tpu_torch import serve as tserve
+from infercam_onnx_tpu_torch.client import sender as tsender
+from infercam_onnx_tpu_torch.client.sender import ReplaySource, send_stream
+from infercam_onnx_tpu_torch.config import (ClientConfig, DetectorConfig,
+                                            EngineConfig, ServerConfig)
+from infercam_onnx_tpu_torch.detector import Detector
+from infercam_onnx_tpu_torch.serving.app import rss_watchdog, start_server
+from infercam_onnx_tpu_torch.serving.broadcast import Broadcast
+from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+from infercam_onnx_tpu_torch.serving.meter import METER
+from infercam_onnx_tpu_torch.serving.router import InferJob, stream_key
+from infercam_onnx_tpu_torch.utils.profiling import device_trace
+
+from tests.test_goldens_fixtures import SYNTH_PICS, WEIGHTS
+
+CONFIG = DetectorConfig(compute_dtype="float32")
+MJPEG_HEADER = b"--frame\r\nContent-Type: image/jpeg\r\n\r\n"
+
+
+@pytest.fixture(scope="module")
+def detector():
+    return Detector(CONFIG, weights=str(WEIGHTS), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def small_dir(tmp_path_factory):
+    """Three 64x48 JPEGs of noise."""
+    d = tmp_path_factory.mktemp("small")
+    rng = np.random.default_rng(5)
+    for i in range(3):
+        frame = rng.integers(0, 256, size=(48, 64, 3), dtype=np.uint8)
+        (d / f"f{i}.jpg").write_bytes(codec.encode_rgb(frame))
+    return d
+
+
+# -- the wire protocol ---------------------------------------------------
+
+GOLDEN_FRAME = (b"\x01\x00\x00\x00" b"\x03\x00\x00\x00\x00\x00\x00\x00" b"bla"
+                b"\x03\x00\x00\x00\x00\x00\x00\x00" b"\x01\x02\x03")
+GOLDEN_CONNECT = (b"\x00\x00\x00\x00" b"\x05\x00\x00\x00\x00\x00\x00\x00"
+                  b"simon")
+
+
+@pytest.mark.parametrize("kind, args, golden", [
+    ("FrameMsg", ("bla", b"\x01\x02\x03"), GOLDEN_FRAME),
+    ("ConnectReq", ("simon",), GOLDEN_CONNECT),
+    ("FrameMsg", ("caméra-1", b"\x00\x01\xff"), None),
+    ("FrameMsg", ("", b""), None),
+    ("ConnectReq", ("",), None),
+    ("FrameMsg", ("x", bytes(range(256)) * 40), None),
+])
+def test_protocol_bytes_equal_jax(kind, args, golden):
+    """Each package encodes the message to the same bytes (the golden
+    bytes of tests/test_protocol.py where given) and decodes the other's
+    bytes back to the message."""
+    tmsg, jmsg = getattr(tproto, kind)(*args), getattr(jproto, kind)(*args)
+    tbytes, jbytes = tproto.encode_proto_msg(tmsg), jproto.encode_proto_msg(jmsg)
+    assert tbytes == jbytes
+    if golden is not None:
+        assert tbytes == golden
+    assert tproto.frame_encode(tbytes) == jproto.frame_encode(jbytes)
+    assert tproto.decode_proto_msg(jbytes) == tmsg
+    assert jproto.decode_proto_msg(tbytes) == jmsg
+    # trailing bytes are accepted by both (bincode 1.x AllowTrailing)
+    assert tproto.decode_proto_msg(jbytes + b"zz") == tmsg
+
+
+@pytest.mark.parametrize("buf", [
+    b"", b"\x01\x00", b"\x07\x00\x00\x00rest", GOLDEN_FRAME[:-1],
+    GOLDEN_CONNECT[:-1],
+    b"\x01\x00\x00\x00\x02\x00\x00\x00\x00\x00\x00\x00\xff\xfe"
+    b"\x00\x00\x00\x00\x00\x00\x00\x00",
+])
+def test_malformed_messages_decode_to_none_in_both(buf):
+    assert tproto.decode_proto_msg(buf) is None
+    assert jproto.decode_proto_msg(buf) is None
+
+
+def test_framing_and_mjpeg_parts_equal_jax():
+    assert tproto.MAX_FRAME_LEN == jproto.MAX_FRAME_LEN
+    assert tproto.as_jpeg_stream_item(b"JPEG") == \
+        jproto.as_jpeg_stream_item(b"JPEG")
+    assert (tproto._MJPEG_HEADER, tproto._MJPEG_TRAILER) == (
+        jproto._MJPEG_HEADER, jproto._MJPEG_TRAILER)
+    payloads = [b"", b"x", b"hello world" * 100]
+    stream = b"".join(jproto.frame_encode(p) for p in payloads)
+    dec = tproto.FrameDecoder()
+    got = []
+    for i in range(0, len(stream), 7):
+        got.extend(dec.feed(stream[i:i + 7]))
+    assert got == payloads
+
+    async def read_all():
+        reader = asyncio.StreamReader()
+        reader.feed_data(stream)
+        reader.feed_eof()
+        return [await tproto.read_frame(reader) for _ in payloads]
+
+    assert asyncio.run(read_all()) == payloads
+    with pytest.raises(ValueError):
+        tproto.frame_encode(b"x" * (tproto.MAX_FRAME_LEN + 1))
+
+
+@pytest.mark.parametrize("name", ["simon", "", "cam-1", "caméra-1",
+                                  "x" * 300])
+def test_stream_key_equals_jax(name):
+    assert stream_key(name) == jstream_key(name)
+
+
+def test_bucket_ladder_and_presets_equal_jax():
+    for n in range(1, 34):
+        assert tserve.bucket_ladder(n) == jserve.bucket_ladder(n)
+    assert tserve.PRESETS == jserve.PRESETS
+
+
+@pytest.mark.parametrize("n, channels", [(1, ["a"]), (3, ["a"]),
+                                         (2, ["a", "b"]), (2, ["a", "b", "c"])])
+def test_plan_channels_equals_jax(n, channels):
+    try:
+        want = jsender.plan_channels(n, channels)
+    except ValueError:
+        with pytest.raises(ValueError):
+            tsender.plan_channels(n, channels)
+        return
+    assert tsender.plan_channels(n, channels) == want
+
+
+# -- the codec and drawing the worker uses ------------------------------
+
+def test_codec_matches_jax_pil_path():
+    """scale, quality and subsampling as the JAX codec's PIL half."""
+    data = (SYNTH_PICS / "synthetic-0.jpg").read_bytes()
+    for scale in (1, 2, 4, 8):
+        got = codec.decode_rgb(data, scale)
+        np.testing.assert_array_equal(got, jcodec._pil_decode(data, scale))
+        assert got.shape == (480 // scale, 640 // scale, 3)
+    frame = codec.decode_rgb(data)
+    for quality, sub in ((95, "420"), (80, "422"), (60, "444")):
+        assert codec.encode_rgb(frame, quality, sub) == \
+            jcodec._pil_encode(frame, quality, sub)
+    with pytest.raises(ValueError, match="corrupt"):
+        codec.decode_batch([data, b"\xff\xd8 not a jpeg"])
+
+
+def test_draw_dims_match_jax():
+    rng = np.random.default_rng(0)
+    frame = rng.integers(0, 256, size=(120, 160, 3), dtype=np.uint8)
+    dets = [(np.array([0.1, 0.2, 0.5, 0.7], np.float32), 0.875),
+            (np.array([0.4, 0.05, 0.95, 0.5], np.float32), 0.51234)]
+    for dims in (None, (1280, 720), (80, 60)):
+        np.testing.assert_array_equal(
+            tdraw.draw_detections(frame, dets, dims),
+            jdraw_detections(frame, dets, dims))
+
+
+# -- configuration ---------------------------------------------------------
+
+@pytest.mark.parametrize("kwargs, item", [
+    ({"decode_mode": "ycbcr"}, "A.3"),
+    ({"decode_mode": "coefficients"}, "A.5"),
+    ({"annotate_mode": "device"}, "A.4"),
+])
+def test_unported_modes_raise(kwargs, item):
+    with pytest.raises(NotImplementedError, match=item):
+        EngineConfig(**kwargs)
+
+
+def test_engine_defaults_and_bad_values():
+    cfg = EngineConfig()
+    assert (cfg.decode_mode, cfg.annotate_mode) == ("pixels", "host")
+    assert tuple(cfg.batch_buckets) == (1, 2, 4, 8, 16)
+    for kwargs in ({"decode_mode": "rgb"}, {"annotate_mode": "gpu"},
+                   {"decode_scale": 3}, {"batch_buckets": ()}):
+        with pytest.raises(ValueError):
+            EngineConfig(**kwargs)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--preset", "throughput"], ["--preset", "lossless"],
+    ["--preset", "latency"], ["--decode-mode", "ycbcr"],
+    ["--annotate", "device"], ["--onnx", "m.onnx"],
+    ["--data-parallel", "on"], ["--tile-min-pixels", "1000000"],
+])
+def test_serve_cli_refuses_unported_paths(argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        tserve.main(["--device", "cpu", *argv])
+    assert exc.value.code == 2
+    assert "error" in capsys.readouterr().err
+
+
+# -- live serving on the CPU ---------------------------------------------
+
+
+@contextlib.asynccontextmanager
+async def _serving(detector, server_kw=None, **engine_kw):
+    engine_kw.setdefault("batch_buckets", (1, 2, 4))
+    server = await start_server(
+        ServerConfig(http_address="127.0.0.1:0",
+                     socket_address="127.0.0.1:0", **(server_kw or {})),
+        engine_config=EngineConfig(**engine_kw), detector=detector)
+    try:
+        yield server
+    finally:
+        await server.close()
+
+
+class _Viewer:
+    """An HTTP client of one endpoint that collects the response body as
+    it arrives."""
+
+    def __init__(self, reader, writer):
+        self._reader, self._writer = reader, writer
+        self.data = b""
+        self._task = asyncio.ensure_future(self._read())
+
+    @classmethod
+    async def open(cls, port: int, path: str, method: str = "GET"):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: x\r\n"
+                     "Connection: close\r\n\r\n".encode())
+        await writer.drain()
+        return cls(reader, writer)
+
+    async def _read(self):
+        while chunk := await self._reader.read(65536):
+            self.data += chunk
+
+    @property
+    def head(self) -> bytes:
+        return self.data.split(b"\r\n\r\n", 1)[0]
+
+    @property
+    def body(self) -> bytes:
+        parts = self.data.split(b"\r\n\r\n", 1)
+        return parts[1] if len(parts) == 2 else b""
+
+    def records(self) -> list[dict]:
+        """The complete NDJSON records so far."""
+        return [json.loads(ln) for ln in self.body.split(b"\n")[:-1]
+                if ln.strip()]
+
+    def parts(self) -> list[bytes]:
+        """The complete MJPEG parts' JPEG payloads so far."""
+        return [c[:-4] for c in self.body.split(MJPEG_HEADER)[1:]
+                if c.endswith(b"\xff\xd9\r\n\r\n")]
+
+    async def wait(self, cond, timeout: float = 30.0, desc: str = ""):
+        await _until(lambda: cond(self), timeout=timeout, desc=desc)
+
+    async def finish(self, timeout: float = 10.0) -> bytes:
+        """The whole response of a request that ends by itself."""
+        await asyncio.wait_for(asyncio.shield(self._task), timeout)
+        return self.data
+
+    async def close(self):
+        self._writer.close()
+        self._task.cancel()
+        await asyncio.gather(self._task, return_exceptions=True)
+
+
+async def _until(cond, *, timeout=30.0, interval=0.02, desc=""):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"not met within {timeout}s: {desc}")
+        await asyncio.sleep(interval)
+
+
+def _subscribed(server, name, kind="inferred"):
+    table = {"raw": server.router._raw, "inferred": server.router._inferred,
+             "detections": server.router._detections}[kind]
+    chan = table.get(stream_key(name))
+    return chan is not None and chan.receiver_count >= 1
+
+
+class _GatedSource:
+    """A FrameSource that sends each frame only once ``gate(i)`` says the
+    server answered the frames before it."""
+
+    def __init__(self, datas, gate):
+        self._datas, self._gate = datas, gate
+
+    async def frames(self):
+        for i, data in enumerate(self._datas):
+            await _until(lambda: self._gate(i), desc=f"answer to frame {i}")
+            yield data
+
+
+@pytest.fixture(scope="module")
+def jax_reference():
+    """JAX Detector (float32, the same frozen weights) on the decoded
+    synthetic pictures: (jpeg bytes, frames, detections)."""
+    datas = [p.read_bytes() for p in sorted(SYNTH_PICS.glob("*.jpg"))]
+    frames = [codec.decode_rgb(d) for d in datas]
+    params = jconvert.params_from_state_dict(dict(np.load(WEIGHTS)))
+    jdet = JDetector(JDetectorConfig(compute_dtype="float32"), params=params)
+    return datas, frames, jdet.detect_batch(np.stack(frames))
+
+
+def test_served_detections_and_annotations_match_jax(detector,
+                                                     jax_reference):
+    datas, frames, want = jax_reference
+
+    async def run():
+        async with _serving(detector) as server:
+            port = server.http_port
+            dets = await _Viewer.open(port, "/detections?name=cam")
+            faces = await _Viewer.open(port, "/face_stream?name=cam")
+            await _until(lambda: _subscribed(server, "cam", "detections")
+                         and _subscribed(server, "cam"), desc="viewers")
+            # one frame at a time, so record i answers frame i
+            source = _GatedSource(datas, lambda i: (
+                len(dets.records()) >= i and len(faces.parts()) >= i))
+            sent = await send_stream(
+                source, ClientConfig(address=f"127.0.0.1:"
+                                     f"{server.socket_port}", channel="cam"))
+            await dets.wait(lambda v: len(v.records()) == len(datas))
+            await faces.wait(lambda v: len(v.parts()) == len(datas))
+            out = (sent, dets.head, dets.records(), faces.head, faces.parts())
+            await dets.close()
+            await faces.close()
+            return out
+
+    sent, det_head, records, face_head, parts = asyncio.run(run())
+    assert sent == len(datas) == 4
+    assert b"application/x-ndjson" in det_head
+    assert b"multipart/x-mixed-replace; boundary=frame" in face_head
+    assert sum(len(d) for d in want) >= 10  # the pictures have faces
+    for rec, frame, wdets, part in zip(records, frames, want, parts):
+        assert (rec["width"], rec["height"]) == (640, 480)
+        assert len(rec["detections"]) == len(wdets)
+        if wdets:
+            np.testing.assert_allclose(
+                [d["bbox"] for d in rec["detections"]],
+                [b for b, _ in wdets], rtol=0, atol=1e-5)
+            np.testing.assert_allclose(
+                [d["confidence"] for d in rec["detections"]],
+                [c for _, c in wdets], rtol=0, atol=5e-5)
+        ref = codec.encode_rgb(jdraw_detections(frame, wdets, None))
+        if part != ref:
+            diff = codec.decode_rgb(part) != codec.decode_rgb(ref)
+            assert diff.mean() <= 2e-3
+
+
+@pytest.mark.parametrize("path, kind", [("/stream", "raw"),
+                                        ("/face_stream", "inferred"),
+                                        ("/snapshot", "inferred")])
+def test_streams_serve_small_frames(detector, small_dir, path, kind):
+    """/stream passes the sent JPEGs through unchanged; /face_stream and
+    /snapshot serve annotated 64x48 JPEGs."""
+    sent_jpegs = [p.read_bytes() for p in sorted(small_dir.glob("*.jpg"))]
+
+    async def run():
+        async with _serving(detector) as server:
+            viewer = await _Viewer.open(server.http_port,
+                                        f"{path}?name=s&timeout=20")
+            await _until(lambda: _subscribed(server, "s", kind),
+                         desc="viewer")
+            sender = asyncio.ensure_future(send_stream(
+                ReplaySource(str(small_dir), fps=30),
+                ClientConfig(address=f"127.0.0.1:{server.socket_port}",
+                             channel="s"), max_frames=30))
+            if path == "/snapshot":
+                await viewer.finish(timeout=30)
+            else:
+                await viewer.wait(lambda v: len(v.parts()) >= 2)
+            await viewer.close()
+            await sender
+            return viewer
+
+    viewer = asyncio.run(run())
+    assert viewer.data.startswith(b"HTTP/1.1 200 OK")
+    if path == "/snapshot":
+        assert b"image/jpeg" in viewer.head
+        jpegs = [viewer.body]
+    else:
+        jpegs = viewer.parts()
+    for jpeg in jpegs:
+        if kind == "raw":
+            assert jpeg in sent_jpegs
+        else:
+            assert codec.decode_rgb(jpeg).shape == (48, 64, 3)
+
+
+@pytest.mark.parametrize("method, path, status, body", [
+    ("GET", "/healthcheck", b"200 OK", b"healthy"),
+    ("GET", "/nope", b"404 Not Found", b"not found"),
+    ("POST", "/stream", b"405 Method Not Allowed", b"method not allowed"),
+    ("GET", "/", b"200 OK", b"infercam_onnx_tpu_torch"),
+    ("GET", "/snapshot?name=idle&timeout=0.1", b"504 Gateway Timeout",
+     b"no frame within timeout"),
+])
+def test_plain_endpoints(detector, method, path, status, body):
+    async def run():
+        async with _serving(detector) as server:
+            viewer = await _Viewer.open(server.http_port, path, method)
+            return await viewer.finish()
+
+    resp = asyncio.run(run())
+    assert resp.startswith(b"HTTP/1.1 " + status)
+    assert body in resp.split(b"\r\n\r\n", 1)[1]
+
+
+def test_stats_and_metrics_report_the_port(detector, small_dir):
+    async def run():
+        async with _serving(detector, {"meter_period_s": 0.1}) as server:
+            port = server.http_port
+            viewer = await _Viewer.open(port, "/detections?name=m")
+            await _until(lambda: _subscribed(server, "m", "detections"),
+                         desc="viewer")
+            await send_stream(
+                ReplaySource(str(small_dir), fps=50),
+                ClientConfig(address=f"127.0.0.1:{server.socket_port}",
+                             channel="m"), max_frames=6)
+            await viewer.wait(lambda v: len(v.records()) >= 1)
+
+            async def get(path):
+                return await (await _Viewer.open(port, path)).finish()
+
+            stats = None
+            for _ in range(100):  # the totals fill on the meter's drain
+                stats = json.loads((await get("/stats")).split(
+                    b"\r\n\r\n", 1)[1])
+                if stats["totals"].get("inferred_unique", 0) >= 1:
+                    break
+                await asyncio.sleep(0.05)
+            metrics = await get("/metrics")
+            await viewer.close()
+            return stats, metrics
+
+    stats, metrics = asyncio.run(run())
+    assert stats["topology"] == {"devices": 1, "platform": "cpu",
+                                 "device": "cpu", "detector": "Detector"}
+    assert stats["warming"] is False
+    assert stats["totals"]["inferred_unique"] >= 1
+    assert stats["totals"]["batches"] >= 1
+    text = metrics.split(b"\r\n\r\n", 1)[1].decode()
+    assert "infercam_inferred_unique_total" in text
+    assert 'infercam_topology_info{detector="Detector",device="cpu",' \
+           'devices="1",platform="cpu"} 1' in text
+
+
+def test_unwatched_stream_is_not_inferred(detector, small_dir):
+    async def run():
+        async with _serving(detector) as server:
+            submitted = []
+            server.router._submit_infer = submitted.append
+            await send_stream(
+                ReplaySource(str(small_dir), fps=100),
+                ClientConfig(address=f"127.0.0.1:{server.socket_port}",
+                             channel="nobody"), max_frames=8)
+            await _until(lambda: "nobody" in server.router._seen,
+                         desc="router saw the stream")
+            return submitted
+
+    assert asyncio.run(run()) == []
+
+
+def test_corrupt_frame_does_not_kill_worker(detector, small_dir):
+    good = (small_dir / "f0.jpg").read_bytes()
+
+    async def run():
+        async with _serving(detector) as server:
+            viewer = await _Viewer.open(server.http_port, "/detections?name=c")
+            await _until(lambda: _subscribed(server, "c", "detections"),
+                         desc="viewer")
+            _, writer = await asyncio.open_connection(
+                "127.0.0.1", server.socket_port)
+
+            def send(payload):
+                writer.write(tproto.frame_encode(payload))
+
+            send(tproto.encode_proto_msg(
+                tproto.FrameMsg("c", b"\xff\xd8 this is not a jpeg")))
+            send(tproto.encode_proto_msg(tproto.ConnectReq("c")))
+            send(b"\x99garbage")
+            await writer.drain()
+            await asyncio.sleep(0.3)  # the corrupt frame's batch alone
+            for _ in range(3):
+                send(tproto.encode_proto_msg(tproto.FrameMsg("c", good)))
+            await writer.drain()
+            await viewer.wait(lambda v: len(v.records()) >= 1)
+            writer.close()
+            await viewer.close()
+            return viewer.records()
+
+    records = asyncio.run(run())
+    assert records[0]["width"] == 64 and records[0]["height"] == 48
+
+
+def test_submit_queue_drops_when_full(detector):
+    async def run():
+        worker = InferenceWorker(detector, EngineConfig(queue_capacity=2))
+        try:
+            chan = Broadcast()
+            return [worker.submit(InferJob(i, b"x", chan)) for i in range(4)]
+        finally:
+            worker.close()
+
+    assert asyncio.run(run()) == [True, True, False, False]
+
+
+def test_live_server_drops_frames_when_the_queue_is_full(detector, small_dir):
+    """A burst into a server whose infer queue holds one frame: the router
+    drops what the queue refuses, counts it, and every frame sent is
+    either inferred or dropped."""
+    async def run():
+        # no meter drain during the test: the counters only grow
+        async with _serving(detector, {"meter_period_s": 3600.0},
+                            queue_capacity=1, batch_buckets=(1,),
+                            coalesce_streams=False) as server:
+            viewer = await _Viewer.open(server.http_port,
+                                        "/detections?name=burst")
+            await _until(lambda: _subscribed(server, "burst", "detections"),
+                         desc="viewer")
+            base = (METER.inferred_unique, METER.dropped)
+
+            def counts():
+                return (METER.inferred_unique - base[0],
+                        METER.dropped - base[1])
+
+            sent = await send_stream(
+                ReplaySource(str(small_dir), fps=0),
+                ClientConfig(address=f"127.0.0.1:{server.socket_port}",
+                             channel="burst"), max_frames=40)
+            await _until(lambda: sum(counts()) >= sent,
+                         desc="every frame inferred or dropped")
+            await viewer.wait(lambda v: len(v.records()) >= counts()[0])
+            await viewer.close()
+            return sent, *counts(), viewer.records()
+
+    sent, inferred, dropped, records = asyncio.run(run())
+    assert sent == 40
+    assert dropped >= 1 and inferred >= 1
+    assert inferred + dropped == sent
+    assert len(records) == inferred
+
+
+@pytest.mark.parametrize("coalesce", [False, True])
+def test_coalescing(detector, small_dir, coalesce):
+    """Eight frames of one stream inside one gather window: without
+    coalescing each gets its own record, with it the newest wins."""
+    async def run():
+        async with _serving(detector, batch_window_ms=1000.0,
+                            coalesce_streams=coalesce, queue_capacity=32,
+                            batch_buckets=(1, 2, 4, 8)) as server:
+            viewer = await _Viewer.open(server.http_port,
+                                        "/detections?name=nc")
+            await _until(lambda: _subscribed(server, "nc", "detections"),
+                         desc="viewer")
+            sent = await send_stream(
+                ReplaySource(str(small_dir), fps=100),
+                ClientConfig(address=f"127.0.0.1:{server.socket_port}",
+                             channel="nc"), max_frames=8)
+            await viewer.wait(lambda v: len(v.records()) >= 1)
+            await asyncio.sleep(0.5)  # any later batch's records
+            await viewer.close()
+            return sent, viewer.records()
+
+    sent, records = asyncio.run(run())
+    assert sent == 8
+    if coalesce:
+        assert 1 <= len(records) < 8
+    else:
+        assert len(records) == 8
+
+
+# -- the process-level guards ----------------------------------------------
+
+@pytest.mark.parametrize("readings, fired", [([100.0, 200.0, 900.0], 1),
+                                             ([100.0] * 10, 0)])
+def test_rss_watchdog(readings, fired):
+    calls = []
+    it = iter(readings)
+
+    async def run():
+        with contextlib.suppress(asyncio.TimeoutError):
+            await asyncio.wait_for(rss_watchdog(
+                500, period_s=0.01, read_rss=lambda: next(it, 100.0),
+                on_breach=lambda: calls.append(True)), 0.3)
+
+    asyncio.run(run())
+    assert len(calls) == fired
+
+
+def test_meter_loses_no_tick_to_a_concurrent_drain():
+    """The worker's three stage threads tick the meter while the event
+    loop drains it: every tick lands in exactly one drained window."""
+    import sys
+    import threading
+
+    from infercam_onnx_tpu_torch.serving.meter import Meter
+
+    meter, n_threads, n_ticks = Meter(), 8, 3000
+    drained = []
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            (meter.tick_dropped(), meter.tick_batch(2, 0.0))
+            for _ in range(n_ticks)]) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            drained.append(meter.drain())
+        for t in threads:
+            t.join(timeout=30)
+            assert not t.is_alive()
+        drained.append(meter.drain())
+    finally:
+        sys.setswitchinterval(saved)
+    assert sum(d["dropped"] for d in drained) == n_threads * n_ticks
+    assert sum(d["batches"] for d in drained) == n_threads * n_ticks
+    assert meter.totals["batched_frames"] == 2 * n_threads * n_ticks
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    import torch
+
+    with device_trace(str(tmp_path)):
+        torch.ones(4).sum()
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert trace["traceEvents"]
+    with device_trace(None):
+        pass
