@@ -32,8 +32,7 @@ class DetectorConfig:
 
 # Decode and annotate modes of the JAX package that the port does not have
 # yet, with the ROADMAP item that ports each.
-_UNPORTED_DECODE = {"ycbcr": "ROADMAP A.3 (packed-YCbCr input)",
-                    "coefficients": "ROADMAP A.5 (coefficients and splice)"}
+_UNPORTED_DECODE = {"coefficients": "ROADMAP A.5 (coefficients and splice)"}
 _UNPORTED_ANNOTATE = {"device": "ROADMAP A.4 (device annotate tail)"}
 
 
@@ -51,10 +50,15 @@ class EngineConfig:
     # Keep only the newest frame per stream within a gather window; False
     # batches every queued frame, several of one stream per batch.
     coalesce_streams: bool = True
-    # Decode incoming JPEGs at 1/decode_scale resolution (PIL draft mode).
+    # Decode incoming JPEGs at 1/decode_scale resolution (libjpeg's IDCT
+    # scaling).
     decode_scale: int = 1
-    # "pixels": host JPEG decode feeds uint8 RGB frames to the device. The
-    # JAX package's "ycbcr" and "coefficients" modes are not ported yet.
+    # "pixels": host JPEG decode feeds uint8 RGB frames to the device.
+    # "ycbcr": detection-only frames are decoded on the host to packed
+    # YCbCr planes (entropy decode + IDCT, ~half the bytes of RGB at
+    # 4:2:0); chroma upsampling and colour conversion run on the device.
+    # Frames with a /face_stream viewer take the pixels path. The JAX
+    # package's "coefficients" mode is not ported yet.
     decode_mode: str = "pixels"
     # "host": /face_stream frames are drawn and JPEG-encoded on the host.
     # The JAX package's default "device" (overlay and FDCT on the device)
@@ -64,14 +68,14 @@ class EngineConfig:
     def __post_init__(self):
         for field, value, unported, ported in (
                 ("decode_mode", self.decode_mode, _UNPORTED_DECODE,
-                 "pixels"),
+                 ("pixels", "ycbcr")),
                 ("annotate_mode", self.annotate_mode, _UNPORTED_ANNOTATE,
-                 "host")):
+                 ("host",))):
             if value in unported:
                 raise NotImplementedError(
                     f"{field}={value!r} is not ported to PyTorch yet "
-                    f"({unported[value]}); use {ported!r}")
-            if value != ported:
+                    f"({unported[value]}); use one of {ported}")
+            if value not in ported:
                 raise ValueError(f"unknown {field} {value!r}")
         if not self.batch_buckets or min(self.batch_buckets) < 1:
             raise ValueError(f"bad batch_buckets {self.batch_buckets!r}")

@@ -5,6 +5,9 @@ The counterpart of ``infercam_onnx_tpu/detector.py``'s
 forward, and filter + greedy NMS over a whole batch of frames. The raw
 uint8 frames are the only host->device copy, and with
 ``pack_output=True`` one ``[B, D, 6]`` array is the only copy back.
+`detect_from_ycbcr` (``detect_from_ycbcr_impl``) takes the host's packed
+YCbCr planes instead, upsamples chroma and converts to RGB on the device,
+and runs the same program.
 """
 
 from __future__ import annotations
@@ -18,6 +21,9 @@ from infercam_onnx_tpu_torch.config import (DetectorConfig, full_float32,
                                             resolve_device)
 from infercam_onnx_tpu_torch.models import checkpoint
 from infercam_onnx_tpu_torch.models import ultraface as uf
+from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
+                                                     unpack_ycbcr_planes)
 from infercam_onnx_tpu_torch.ops.postprocess import batched_postprocess
 from infercam_onnx_tpu_torch.ops.preprocess import Preprocessor, preprocess_images
 
@@ -60,6 +66,41 @@ def detect_program(
     if not pack_output:
         return sel_boxes, sel_conf, count
     return pack_detections(sel_boxes, sel_conf, count)
+
+
+@torch.inference_mode()
+def detect_from_ycbcr(
+    model: uf.UltraFace,
+    priors: torch.Tensor,
+    packed: torch.Tensor,  # [B, n] uint8: Y ++ Cb ++ Cr padded planes
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    y_pw: int,
+    y_ph: int,
+    c_pw: int,
+    c_ph: int,
+    sampling: tuple[int, int],
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+    pack_output: bool = False,
+):
+    """Packed YCbCr planes in (``decode_ycbcr_batch``'s layout and
+    geometry), padded detections out, all on ``packed.device``: unpack,
+    chroma upsample + BT.601 to float RGB on the u8 grid, then
+    `detect_program`."""
+    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
+                                    c_pw=c_pw, c_ph=c_ph)
+    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                        sampling=sampling)
+    return detect_program(
+        model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
+        max_iou=max_iou, top_k=top_k, max_detections=max_detections,
+        pack_output=pack_output)
 
 
 def pack_detections(sel_boxes, sel_conf, count) -> torch.Tensor:
@@ -131,6 +172,36 @@ class Detector:
         c = self.config
         return detect_program(
             self.model, self.priors, images, r_h, r_w,
+            min_confidence=c.min_confidence, max_iou=c.max_iou,
+            top_k=c.top_k, max_detections=c.max_detections,
+            pack_output=pack_output)
+
+    def run_device_ycbcr(self, datas: list[bytes], *, scale: int = 1,
+                         pack_output: bool = False):
+        """JPEG bytes of one geometry -> detections: the host decodes
+        them to packed YCbCr planes at 1/``scale`` (one batched call on the
+        shim's thread pool), and `run_device_ycbcr_packed` does the rest."""
+        packed, geom = native_jpeg.load().decode_ycbcr_batch(datas,
+                                                             scale=scale)
+        return self.run_device_ycbcr_packed(packed, geom,
+                                            pack_output=pack_output)
+
+    def run_device_ycbcr_packed(self, packed: torch.Tensor | np.ndarray,
+                                geom: dict, *, pack_output: bool = False):
+        """[B, n] uint8 packed planes and their ``geom`` (from
+        ``decode_ycbcr_batch``) -> detections as `run_device` gives them,
+        on the device, one host->device copy. Returns without waiting for
+        the device."""
+        if isinstance(packed, np.ndarray):
+            packed = torch.from_numpy(np.require(packed, requirements="WC"))
+        packed = packed.to(self.device)
+        w, h = geom["width"], geom["height"]
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        c = self.config
+        return detect_from_ycbcr(
+            self.model, self.priors, packed, r_h, r_w, width=w, height=h,
+            y_pw=geom["y_pw"], y_ph=geom["y_ph"], c_pw=geom["c_pw"],
+            c_ph=geom["c_ph"], sampling=tuple(geom["sampling"]),
             min_confidence=c.min_confidence, max_iou=c.max_iou,
             top_k=c.top_k, max_detections=c.max_detections,
             pack_output=pack_output)

@@ -5,9 +5,10 @@ The port's copy of ``infercam_onnx_tpu/eval/goldens.py``
 ``infercam_onnx_tpu/eval/parity.py``:
 
 - detections are greedily matched by IoU (highest first);
-- a match counts toward *box parity* when IoU >= `IOU_THRESH` and
+- a match counts toward *box parity* when IoU >= `IOU_THRESH` (or the
+  caller's ``iou_thresh``) and
   toward *confidence parity* when also ``|conf_got - conf_want| <=
-  CONF_TOL``;
+  CONF_TOL`` (or ``conf_tol``);
 - parity = matched / max(len(want), len(got)), so both misses and extras
   count against it.
 
@@ -77,14 +78,15 @@ class ParityReport:
         }
 
 
-def match_detections(got: Detections,
-                     want: Detections) -> list[tuple[int, int, float]]:
+def match_detections(got: Detections, want: Detections,
+                     iou_thresh: float = IOU_THRESH
+                     ) -> list[tuple[int, int, float]]:
     """Greedy IoU matching: [(got_idx, want_idx, iou)], best IoU first."""
     pairs = []
     for i, (gb, _) in enumerate(got):
         for j, (wb, _) in enumerate(want):
             v = iou(np.asarray(gb, np.float64), np.asarray(wb, np.float64))
-            if v >= IOU_THRESH:
+            if v >= iou_thresh:
                 pairs.append((v, i, j))
     pairs.sort(reverse=True)
     used_g: set[int] = set()
@@ -100,15 +102,20 @@ def match_detections(got: Detections,
 
 
 def parity_report(got_sets: Sequence[Detections],
-                  want_sets: Sequence[Detections]) -> ParityReport:
+                  want_sets: Sequence[Detections], *,
+                  iou_thresh: float = IOU_THRESH,
+                  conf_tol: float = CONF_TOL) -> ParityReport:
+    """Box and confidence parity of ``got_sets`` against ``want_sets``;
+    the goldens gate takes the defaults, the packed-YCbCr path's parity
+    against the pixels path IoU 0.8 and confidence tolerance 0.05."""
     report = ParityReport()
     for got, want in zip(got_sets, want_sets):
         report.images += 1
         report.want_total += len(want)
         report.got_total += len(got)
-        for gi, wi, _ in match_detections(got, want):
+        for gi, wi, _ in match_detections(got, want, iou_thresh):
             report.box_matched += 1
-            if abs(got[gi][1] - want[wi][1]) <= CONF_TOL:
+            if abs(got[gi][1] - want[wi][1]) <= conf_tol:
                 report.conf_matched += 1
     return report
 

@@ -11,13 +11,14 @@ Usage::
         [--max-detections 64] [--max-batch 16] [--batch-window-ms 4] \
         [--queue-capacity 10] [--no-coalesce] \
         [--warmup 640x480,1280x720] [--warmup-sync] [--decode-scale 1] \
-        [--assume-frame-dims 1280x720] [--max-rss-mb N] \
-        [--profile-dir DIR]
+        [--decode-mode pixels|ycbcr] [--assume-frame-dims 1280x720] \
+        [--max-rss-mb N] [--profile-dir DIR]
 
-The flags are the JAX server's for the ported path: pixels decode, host
-annotation, one device. ``--device`` picks the device (``cuda`` unless
-asked otherwise); without ``--weights`` the weights are the detector's
-seeded random ones. Port 0 in an address binds a free port.
+The flags are the JAX server's for the ported paths: pixels and ycbcr
+decode, host annotation, one device; the presets are the JAX server's.
+``--device`` picks the device (``cuda`` unless asked otherwise); without
+``--weights`` the weights are the detector's seeded random ones. Port 0
+in an address binds a free port.
 """
 
 from __future__ import annotations
@@ -30,9 +31,7 @@ import signal
 import sys
 
 # Named flag bundles (an explicitly passed flag wins over the preset),
-# as in the JAX server. The three tuned bundles name the ycbcr decode
-# mode, which the port does not have yet: choosing one is an error
-# unless --decode-mode pixels is passed beside it.
+# as in the JAX server.
 PRESETS: dict[str, dict] = {
     "reference": {},
     "throughput": dict(decode_mode="ycbcr", decode_scale=2,
@@ -110,7 +109,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="open the listeners only after the warm-up")
     ap.add_argument("--decode-mode", default="pixels",
                     choices=["pixels", "coefficients", "ycbcr"],
-                    help="only pixels is ported; the others are an error")
+                    help="pixels: host RGB decode; ycbcr: host decode to "
+                         "packed YCbCr planes, chroma upsample and colour "
+                         "on the device; coefficients is not ported and "
+                         "is an error")
     ap.add_argument("--decode-scale", type=int, default=1,
                     choices=[1, 2, 4, 8],
                     help="decode incoming JPEGs at 1/N resolution "

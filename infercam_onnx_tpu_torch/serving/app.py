@@ -4,8 +4,9 @@ inference worker, HTTP endpoints and meter logger as asyncio tasks in one
 process, on one device.
 
 The port serves from one device: there is no mesh and no lockstep
-dispatch (ROADMAP A.7), and no link probe, which only re-routes the
-ycbcr and coefficients decode modes (ROADMAP A.3 and A.5).
+dispatch (ROADMAP A.7), and no link probe (``serving/link.py``, ROADMAP
+A.5): its policy re-routes only the coefficients mode, the tiled upload
+and device annotation, none of which is ported.
 """
 
 from __future__ import annotations

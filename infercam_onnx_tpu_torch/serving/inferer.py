@@ -1,6 +1,6 @@
 """Micro-batched inference worker on one device: the port of
-``infercam_onnx_tpu/serving/inferer.py`` for the pixels decode mode and
-host annotation.
+``infercam_onnx_tpu/serving/inferer.py`` for the pixels and ycbcr decode
+modes and host annotation.
 
 The same shape as the JAX worker:
 
@@ -11,13 +11,23 @@ The same shape as the JAX worker:
   holds them;
 - three stages on three single-thread executors, decode(k+2) ||
   device(k+1) || draw + encode + publish(k), with NDJSON detections and
-  annotated MJPEG parts published to each stream's broadcasts.
+  annotated MJPEG parts published to each stream's broadcasts;
+- in ``decode_mode="ycbcr"``, detection-only frames are decoded to packed
+  YCbCr planes in one batched call of the native shim (entropy decode and
+  IDCT on its thread pool, the GIL released), grouped by geometry, and
+  uploaded as one ``[bucket, n]`` uint8 batch; the device upsamples
+  chroma and converts colour before the same detect program
+  (``Detector.run_device_ycbcr_packed``, stage ``"device_ycbcr"``).
+  Frames with a ``/face_stream`` viewer need host pixels to draw on and
+  take the pixels path, as the JAX worker's do without device annotation;
+  a frame the packed decode refuses is pixel-decoded instead of dropped.
 
 What changes is the transfer discipline, written for a CUDA device:
 
-- **upload** (decode thread): the padded batch is written into a fresh
-  pinned host tensor and copied to the device with ``non_blocking=True``
-  on a dedicated copy stream, which then records an event. PyTorch's
+- **upload** (decode thread): the padded batch (frames, or packed plane
+  rows) is written into a fresh pinned host tensor and copied to the
+  device with ``non_blocking=True`` on a dedicated copy stream, which then
+  records an event. PyTorch's
   caching host allocator records the copy on the pinned block and hands
   the block out again only once that copy has completed, so the staging
   buffers of both directions are reused without a ring of our own. The
@@ -25,10 +35,10 @@ What changes is the transfer discipline, written for a CUDA device:
   caching allocator does not hand its memory out again before the compute
   stream is done with it.
 - **compute** (device thread): the compute stream waits on that event,
-  then ``Detector.run_device(batch, pack_output=True)`` runs under
-  ``torch.cuda.stream(compute)``. Every launch in it, the NMS kernel's
-  included (``ops/nms.py`` launches on ``torch.cuda.current_stream()``),
-  lands on the compute stream.
+  then ``Detector.run_device(batch, pack_output=True)`` (or
+  ``run_device_ycbcr_packed``) runs under ``torch.cuda.stream(compute)``.
+  Every launch in it, the NMS kernel's included (``ops/nms.py`` launches
+  on ``torch.cuda.current_stream()``), lands on the compute stream.
 - **readback** (device thread): the packed ``[B, D, 6]`` output is copied
   into a fresh pinned host tensor with ``non_blocking=True`` and an event
   is recorded after it. The publish thread waits on that event before it
@@ -56,6 +66,7 @@ from infercam_onnx_tpu_torch import codec
 from infercam_onnx_tpu_torch.config import EngineConfig, ServerConfig
 from infercam_onnx_tpu_torch.detector import Detector
 from infercam_onnx_tpu_torch.draw import draw_detections
+from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.protocol import as_jpeg_stream_item
 from infercam_onnx_tpu_torch.serving.meter import METER
 from infercam_onnx_tpu_torch.serving.router import InferJob
@@ -189,60 +200,112 @@ class InferenceWorker:
     # -- stage 1: decode + batch assembly + upload (decode thread) ---------
 
     def _decode(self, jobs: list[InferJob]) -> list[dict]:
-        """Decode the jobs' JPEGs, group the frames by size into padded
-        batches and start each batch's upload. A corrupt frame is dropped,
-        not fatal."""
-        frames: list[tuple[InferJob, np.ndarray]] = []
+        """Decode the jobs' JPEGs, group them into padded batches and
+        start each batch's upload. In ycbcr mode detection-only jobs take
+        the packed-plane decode, grouped by JPEG geometry; every other job
+        is pixel-decoded and grouped by frame size. A frame nothing can
+        decode is dropped and counted, not fatal."""
         scale = self._cfg.decode_scale
-        with STAGES.stage("decode"):
+        ycbcr = self._cfg.decode_mode == "ycbcr"
+        pixel_jobs = [j for j in jobs if j.reply is not None or not ycbcr]
+        ycbcr_jobs = [j for j in jobs if j.reply is None and ycbcr]
+        frames: list[tuple[InferJob, np.ndarray]] = []
+
+        def pixel_decode(job: InferJob, why) -> None:
             try:
-                decoded = codec.decode_batch([j.data for j in jobs], scale)
-                frames = list(zip(jobs, decoded))
-            except ValueError:
-                for job in jobs:
-                    try:
-                        frames.append((job, codec.decode_rgb(job.data,
-                                                             scale)))
-                    except ValueError:
-                        log.warning("dropping corrupt frame on stream %x",
-                                    job.key)
-                        METER.tick_dropped()
+                frames.append((job, codec.decode_rgb(job.data, scale)))
+            except ValueError as e:
+                log.warning("dropping corrupt frame on stream %x (%s)",
+                            job.key, why or e)
+                METER.tick_dropped()
+
+        with STAGES.stage("decode"):
+            if pixel_jobs:
+                try:
+                    decoded = codec.decode_batch(
+                        [j.data for j in pixel_jobs], scale)
+                    frames = list(zip(pixel_jobs, decoded))
+                except ValueError:
+                    for job in pixel_jobs:
+                        pixel_decode(job, None)
+            groups = (self._decode_ycbcr(ycbcr_jobs, pixel_decode)
+                      if ycbcr_jobs else [])
 
         units: list[dict] = []
         with STAGES.stage("upload"):
             by_shape: dict[tuple[int, int], list] = {}
             for job, frame in frames:
                 by_shape.setdefault(frame.shape[:2], []).append((job, frame))
-            for (h, w), members in by_shape.items():
-                bucket = self._bucket_size(len(members))
-                extra = len(members) - bucket
-                if extra > 0:
-                    # the gather window stops at the largest bucket, so
-                    # this should not happen; count it if it does
-                    log.warning("batch group overflow: dropping %d frames "
-                                "beyond bucket %d", extra, bucket)
-                    METER.tick_dropped(extra)
-                    members = members[:bucket]
-                batch, ready = self._upload([f for _, f in members],
-                                            bucket, h, w)
-                units.append({"members": members, "n": len(members),
-                              "batch": batch, "ready": ready,
-                              "w": w, "h": h})
+            units.extend(self._unit(members) for members in
+                         by_shape.values())
+            units.extend(self._unit(members, geom)
+                         for members, geom in groups)
         return units
 
-    def _upload(self, frames: list[np.ndarray], bucket: int, h: int,
-                w: int) -> tuple[torch.Tensor, torch.cuda.Event | None]:
-        """The [bucket, h, w, 3] uint8 batch, zero-padded, on the device,
-        and the event after which it is there (None on the CPU)."""
+    def _decode_ycbcr(self, jobs: list[InferJob], pixel_decode):
+        """[(members, geom)]: the jobs' packed YCbCr rows grouped by JPEG
+        geometry, members as (job, row). One batched call when every frame
+        shares a geometry (the common case: the same cameras); on a mixed
+        or corrupt batch, one call a frame, and a frame the packed decode
+        refuses (a grayscale or 4:1:1 JPEG, a corrupt one) goes to
+        ``pixel_decode``."""
+        native = native_jpeg.load()
+        scale = self._cfg.decode_scale
+        try:
+            packed, geom = native.decode_ycbcr_batch([j.data for j in jobs],
+                                                     scale=scale)
+            return [(list(zip(jobs, packed)), geom)]
+        except ValueError:
+            pass
+        by_geom: dict[tuple, tuple[list, dict]] = {}
+        for job in jobs:
+            try:
+                packed, geom = native.decode_ycbcr_batch([job.data],
+                                                         scale=scale)
+            except ValueError as e:
+                pixel_decode(job, e)
+                continue
+            by_geom.setdefault(tuple(geom.items()), ([], geom))[0].append(
+                (job, packed[0]))
+        return list(by_geom.values())
+
+    def _unit(self, members: list, geom: dict | None = None) -> dict:
+        """One padded batch of ``members`` (job, frame or packed row),
+        uploading: the device stage's work item. ``geom`` is the packed
+        rows' geometry, None for pixel frames."""
+        if geom is None:
+            h, w = members[0][1].shape[:2]
+        else:
+            w, h = geom["width"], geom["height"]
+        bucket = self._bucket_size(len(members))
+        extra = len(members) - bucket
+        if extra > 0:
+            # the gather window stops at the largest bucket, so this
+            # should not happen; count it if it does
+            log.warning("batch group overflow: dropping %d frames beyond "
+                        "bucket %d", extra, bucket)
+            METER.tick_dropped(extra)
+            members = members[:bucket]
+        batch, ready = self._upload([r for _, r in members], bucket)
+        if geom is not None:  # nothing to draw on: the rows are planes
+            members = [(job, None) for job, _ in members]
+        return {"members": members, "n": len(members), "batch": batch,
+                "ready": ready, "geom": geom, "w": w, "h": h}
+
+    def _upload(self, rows: list[np.ndarray], bucket: int
+                ) -> tuple[torch.Tensor, torch.cuda.Event | None]:
+        """The [bucket, *row shape] uint8 batch of ``rows`` (frames or
+        packed plane rows), zero-padded, on the device, and the event
+        after which it is there (None on the CPU)."""
+        shape = (bucket, *rows[0].shape)
         if self._copy_stream is None:
-            batch = np.zeros((bucket, h, w, 3), np.uint8)
-            batch[:len(frames)] = frames
+            batch = np.zeros(shape, np.uint8)
+            batch[:len(rows)] = rows
             return torch.from_numpy(batch), None
-        host = torch.empty((bucket, h, w, 3), dtype=torch.uint8,
-                           pin_memory=True)
+        host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
         view = host.numpy()
-        view[:len(frames)] = frames
-        view[len(frames):] = 0
+        view[:len(rows)] = rows
+        view[len(rows):] = 0
         with torch.cuda.stream(self._copy_stream):
             batch = host.to(self.device, non_blocking=True)
             ready = torch.cuda.Event()
@@ -258,24 +321,29 @@ class InferenceWorker:
         results = []
         for unit in units:
             t0 = time.monotonic()
-            with STAGES.stage("device"):
-                packed, done = self._run_detection(unit["batch"],
-                                                   unit["ready"])
+            with STAGES.stage("device" if unit["geom"] is None
+                              else "device_ycbcr"):
+                packed, done = self._run_detection(unit)
             METER.tick_batch(unit["n"], time.monotonic() - t0)
             results.append({"members": unit["members"], "packed": packed,
                             "done": done, "w": unit["w"], "h": unit["h"]})
         return results
 
-    def _run_detection(self, batch: torch.Tensor,
-                       ready: torch.cuda.Event | None):
+    def _detect(self, unit: dict) -> torch.Tensor:
+        if unit["geom"] is None:
+            return self._detector.run_device(unit["batch"], pack_output=True)
+        return self._detector.run_device_ycbcr_packed(
+            unit["batch"], unit["geom"], pack_output=True)
+
+    def _run_detection(self, unit: dict):
         """The packed [B, D, 6] detections of one padded batch as a host
         tensor, and the event after which they may be read (None on the
         CPU, where they are ready on return)."""
         if self._compute_stream is None:
-            return self._detector.run_device(batch, pack_output=True), None
+            return self._detect(unit), None
         with torch.cuda.stream(self._compute_stream):
-            self._compute_stream.wait_event(ready)
-            packed = self._detector.run_device(batch, pack_output=True)
+            self._compute_stream.wait_event(unit["ready"])
+            packed = self._detect(unit)
             host = torch.empty(packed.shape, dtype=packed.dtype,
                                pin_memory=True)
             host.copy_(packed, non_blocking=True)
@@ -336,8 +404,22 @@ class InferenceWorker:
         """Run the detect program once for every bucket at each (h, w)
         resolution as senders send it (decode_scale applied), so kernel
         builds, cuDNN's algorithm choices and the resize matrices are done
-        before traffic. `serving.app` runs it on the device thread."""
+        before traffic. In ycbcr mode a 4:2:0 probe JPEG of each
+        resolution also runs every bucket through the packed-plane path
+        (the shim's build included). `serving.app` runs it on the device
+        thread."""
         s = self._cfg.decode_scale
         for (h, w) in resolutions or [(480, 640)]:
             for b in self._buckets:
                 self._detector.warmup(b, h // s, w // s)
+            if self._cfg.decode_mode != "ycbcr":
+                continue
+            probe = codec.encode_rgb(np.zeros((h, w, 3), np.uint8), 90,
+                                     "420")
+            for b in self._buckets:
+                packed, geom = native_jpeg.load().decode_ycbcr_batch(
+                    [probe] * b, scale=s)
+                self._detector.run_device_ycbcr_packed(packed, geom,
+                                                       pack_output=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)

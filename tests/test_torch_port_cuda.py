@@ -1,5 +1,6 @@
-"""The hand CUDA kernels against their plain versions, and the serving
-worker's stream-ordered transfers, on the card.
+"""The hand CUDA kernels against their plain versions, the packed-YCbCr
+decode tail against the CPU, and the serving worker's stream-ordered
+transfers, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -192,10 +193,12 @@ def _burst_jpegs(n: int) -> list[bytes]:
 LAG_CYCLES = 40_000_000
 
 
-def _serve_burst(det, jpegs, *, publish_delay_s: float):
+def _serve_burst(det, jpegs, *, publish_delay_s: float,
+                 decode_mode: str = "pixels"):
     """Submit every JPEG at once to an InferenceWorker (no coalescing,
-    buckets up to 16) and run it until all are published. Returns the
-    worker, the device batches it dispatched with their frame counts,
+    buckets up to 16, detection-only jobs) and run it until all are
+    published. Returns the
+    worker, the device units it dispatched with their frame counts,
     whether each batch's readback landed in pinned memory, the NDJSON
     records a /detections subscriber received (in publish order, which is
     dispatch order), and the most batches that were between upload and
@@ -217,7 +220,8 @@ def _serve_burst(det, jpegs, *, publish_delay_s: float):
     async def run():
         worker = InferenceWorker(det, EngineConfig(
             batch_buckets=(1, 2, 4, 8, 16), queue_capacity=len(jpegs),
-            batch_window_ms=20.0, coalesce_streams=False))
+            batch_window_ms=20.0, coalesce_streams=False,
+            decode_mode=decode_mode))
         decode, dispatch = worker._decode, worker._device_stage
         publish = worker._publish_results
 
@@ -228,7 +232,7 @@ def _serve_burst(det, jpegs, *, publish_delay_s: float):
             return units
 
         def dispatch_tap(units):
-            batches.extend((u["batch"], u["n"]) for u in units)
+            batches.extend((u, u["n"]) for u in units)
             return dispatch(units)
 
         def publish_tap(results):
@@ -252,18 +256,19 @@ def _serve_burst(det, jpegs, *, publish_delay_s: float):
         worker.close()
         return worker
 
-    run_device = det.run_device
+    def lagging(program):
+        def run(*args, **kwargs):
+            out = program(*args, **kwargs)
+            torch.cuda._sleep(LAG_CYCLES)  # on the worker's compute stream
+            return out
+        return run
 
-    def lagging_run_device(*args, **kwargs):
-        out = run_device(*args, **kwargs)
-        torch.cuda._sleep(LAG_CYCLES)  # on the worker's compute stream
-        return out
-
-    det.run_device = lagging_run_device
+    det.run_device = lagging(det.run_device)
+    det.run_device_ycbcr_packed = lagging(det.run_device_ycbcr_packed)
     try:
         worker = asyncio.run(run())
     finally:
-        del det.run_device
+        del det.run_device, det.run_device_ycbcr_packed
     torch.cuda.synchronize()
     return worker, batches, pinned, records, inflight[1]
 
@@ -294,7 +299,9 @@ def test_served_output_bit_identical_to_run_device(cuda, n, publish_delay_s):
         assert most_inflight >= 3
     assert sum(count for _, count in batches) == len(records) == n
     row = 0
-    for batch, count in batches:
+    for unit, count in batches:
+        batch = unit["batch"]
+        assert unit["geom"] is None
         assert batch.device == cuda and batch.dtype == torch.uint8
         want = det.run_device(batch, pack_output=True).cpu().numpy()
         served = [r["detections"] for r in records[row:row + count]]
@@ -321,3 +328,105 @@ def test_nms_kernel_runs_on_the_workers_compute_stream(cuda, monkeypatch):
     assert len(streams) == len(batches) >= 2
     assert all(s == worker._compute_stream for s in streams)
     assert worker._compute_stream != torch.cuda.default_stream(cuda)
+
+
+# -- the packed-YCbCr decode tail ---------------------------------------------
+
+
+def _synthetic_jpegs() -> list[bytes]:
+    return [p.read_bytes() for p in sorted(
+        (REPO / "resources" / "test_pics_synthetic").glob("*.jpg"))]
+
+
+@pytest.mark.parametrize("sub", ["420", "422", "444"])
+@pytest.mark.parametrize("scale", [1, 2])
+def test_combine_ycbcr_on_cuda_matches_cpu(cuda, sub, scale):
+    """The upsample products take exact taps and the colour pass runs op
+    by op, so the card's RGB equals the CPU's bit for bit."""
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import jpeg_device as jd
+
+    frames = codec.decode_batch(_synthetic_jpegs())
+    packed, geom = native_jpeg.load().decode_ycbcr_batch(
+        [codec.encode_rgb(f, 90, sub) for f in frames], scale=scale)
+    keys = ("y_pw", "y_ph", "c_pw", "c_ph")
+    packed = torch.from_numpy(np.array(packed))
+    out = []
+    for device in (cuda, "cpu"):
+        planes = jd.unpack_ycbcr_planes(packed.to(device),
+                                        **{k: geom[k] for k in keys})
+        out.append(jd.combine_ycbcr(
+            *planes, width=geom["width"], height=geom["height"],
+            sampling=geom["sampling"]).cpu())
+    assert torch.equal(*out)
+
+
+def test_run_device_ycbcr_packed_on_cuda_matches_cpu_f32(cuda):
+    """float32 trunk, frozen weights, the synthetic pictures' packed
+    planes: the card's packed output equals the CPU's in counts, boxes
+    within 1e-5 and confidences within 5e-5 (cuDNN and oneDNN sum the
+    convs in different orders), and the program launches the NMS kernel
+    once."""
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+
+    packed, geom = native_jpeg.load().decode_ycbcr_batch(_synthetic_jpegs())
+    weights = str(REPO / "resources" / "weights" / "ultraface-twin.npz")
+    config = DetectorConfig(compute_dtype="float32", top_k=512,
+                            max_detections=256)
+    det = Detector(config, weights=weights, device=cuda)
+    before = nms.kernel.launches
+    got = det.run_device_ycbcr_packed(packed, geom, pack_output=True).cpu()
+    assert nms.kernel.launches == before + 1
+    want = Detector(config, weights=weights, device="cpu"
+                    ).run_device_ycbcr_packed(packed, geom, pack_output=True)
+    assert torch.equal(got[..., 5], want[..., 5])
+    assert int(want[..., 5].sum()) >= 10
+    torch.testing.assert_close(got[..., :4], want[..., :4], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(got[..., 4], want[..., 4], rtol=0, atol=5e-5)
+
+
+def test_served_ycbcr_output_bit_identical_to_run_device_ycbcr_packed(cuda):
+    """A burst of 64 detection-only frames through a ycbcr worker: each
+    dispatched unit holds packed plane rows, and the detections published
+    for each frame are run_device_ycbcr_packed's on the same padded batch
+    outside the worker, bit for bit, with the card held back before each
+    readback."""
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    worker, units, pinned, records, most_inflight = _serve_burst(
+        det, _burst_jpegs(64), publish_delay_s=0.2, decode_mode="ycbcr")
+    assert len(units) == len(pinned) == 4 and all(pinned)
+    assert most_inflight >= 3
+    assert sum(count for _, count in units) == len(records) == 64
+    row = 0
+    for unit, count in units:
+        batch, geom = unit["batch"], unit["geom"]
+        assert geom is not None and batch.ndim == 2
+        assert batch.device == cuda and batch.dtype == torch.uint8
+        want = det.run_device_ycbcr_packed(batch, geom,
+                                           pack_output=True).cpu().numpy()
+        served = [r["detections"] for r in records[row:row + count]]
+        assert served == [_detections(want[i]) for i in range(count)]
+        assert any(served)
+        row += count
+
+
+def test_nms_kernel_runs_on_the_ycbcr_workers_compute_stream(cuda,
+                                                             monkeypatch):
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    real, streams = nms.kernel, []
+
+    def spy(boxes_t, valid, max_iou):
+        streams.append(torch.cuda.current_stream())
+        return real(boxes_t, valid, max_iou)
+
+    monkeypatch.setattr(nms, "kernel", spy)
+    worker, units, _, _, _ = _serve_burst(det, _burst_jpegs(20),
+                                          publish_delay_s=0.0,
+                                          decode_mode="ycbcr")
+    assert len(streams) == len(units) >= 2
+    assert all(u["geom"] is not None for u, _ in units)
+    assert all(s == worker._compute_stream for s in streams)

@@ -15,15 +15,22 @@ of JAX ``draw_detections`` on those detections: the same JPEG bytes, or,
 where a box edge or a label's last digit falls on the other side of a
 pixel or rounding boundary within those tolerances, decoded pixels that
 differ in at most 0.2% of the values.
+
+In ``decode_mode="ycbcr"`` a published record must equal
+``Detector.run_device_ycbcr_packed`` on the batch the worker dispatched,
+exactly (the same CPU program on the same rows), and that batch must hold
+the shim's packed rows; a /face_stream stream keeps the pixels path.
 """
 
 import asyncio
 import contextlib
+import io
 import json
 import time
 
 import numpy as np
 import pytest
+from PIL import Image
 
 from infercam_onnx_tpu import codec as jcodec
 from infercam_onnx_tpu import protocol as jproto
@@ -43,6 +50,7 @@ from infercam_onnx_tpu_torch.client.sender import ReplaySource, send_stream
 from infercam_onnx_tpu_torch.config import (ClientConfig, DetectorConfig,
                                             EngineConfig, ServerConfig)
 from infercam_onnx_tpu_torch.detector import Detector
+from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.serving.app import rss_watchdog, start_server
 from infercam_onnx_tpu_torch.serving.broadcast import Broadcast
 from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
@@ -167,18 +175,30 @@ def test_plan_channels_equals_jax(n, channels):
 # -- the codec and drawing the worker uses ------------------------------
 
 def test_codec_matches_jax_pil_path():
-    """scale, quality and subsampling as the JAX codec's PIL half."""
-    data = (SYNTH_PICS / "synthetic-0.jpg").read_bytes()
+    """The codec the worker uses is the native shim: its decodes equal the
+    JAX codec's native ones and PIL's (the same libjpeg-turbo IDCT and
+    fancy upsampling), at every scale, batched or not; its encodes equal
+    the JAX codec's native bytes. The PIL half is kept as the oracle and
+    equals the JAX codec's PIL half."""
+    datas = [p.read_bytes() for p in sorted(SYNTH_PICS.glob("*.jpg"))]
     for scale in (1, 2, 4, 8):
-        got = codec.decode_rgb(data, scale)
-        np.testing.assert_array_equal(got, jcodec._pil_decode(data, scale))
-        assert got.shape == (480 // scale, 640 // scale, 3)
-    frame = codec.decode_rgb(data)
+        batch = codec.decode_batch(datas, scale)
+        for data, got in zip(datas, batch):
+            assert got.shape == (480 // scale, 640 // scale, 3)
+            np.testing.assert_array_equal(got, codec.decode_rgb(data, scale))
+            np.testing.assert_array_equal(got, jcodec.decode_rgb(data, scale))
+            pil = codec._pil_decode(data, scale)
+            np.testing.assert_array_equal(got, pil)
+            np.testing.assert_array_equal(pil,
+                                          jcodec._pil_decode(data, scale))
+    frame = codec.decode_rgb(datas[0])
     for quality, sub in ((95, "420"), (80, "422"), (60, "444")):
         assert codec.encode_rgb(frame, quality, sub) == \
+            jcodec.encode_rgb(frame, quality, sub)
+        assert codec._pil_encode(frame, quality, sub) == \
             jcodec._pil_encode(frame, quality, sub)
     with pytest.raises(ValueError, match="corrupt"):
-        codec.decode_batch([data, b"\xff\xd8 not a jpeg"])
+        codec.decode_batch([datas[0], b"\xff\xd8 not a jpeg"])
 
 
 def test_draw_dims_match_jax():
@@ -195,7 +215,6 @@ def test_draw_dims_match_jax():
 # -- configuration ---------------------------------------------------------
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"decode_mode": "ycbcr"}, "A.3"),
     ({"decode_mode": "coefficients"}, "A.5"),
     ({"annotate_mode": "device"}, "A.4"),
 ])
@@ -215,16 +234,53 @@ def test_engine_defaults_and_bad_values():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--preset", "throughput"], ["--preset", "lossless"],
-    ["--preset", "latency"], ["--decode-mode", "ycbcr"],
-    ["--annotate", "device"], ["--onnx", "m.onnx"],
-    ["--data-parallel", "on"], ["--tile-min-pixels", "1000000"],
+    ["--decode-mode", "coefficients"], ["--annotate", "device"],
+    ["--onnx", "m.onnx"], ["--data-parallel", "on"],
+    ["--tile-min-pixels", "1000000"],
 ])
 def test_serve_cli_refuses_unported_paths(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         tserve.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
     assert "error" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--preset", "throughput"], ["--preset", "lossless"],
+    ["--preset", "latency"], ["--decode-mode", "ycbcr"],
+    ["--preset", "throughput", "--decode-scale", "1", "--max-batch", "8",
+     "--warmup-sync"],
+])
+def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
+    """The ycbcr decode mode and the three tuned presets run: each argv
+    gives the server the EngineConfig fields, warm-up resolutions and
+    warm-up mode the JAX CLI gives its own (its annotate mode aside: the
+    port annotates on the host, the JAX default is the device)."""
+    from infercam_onnx_tpu.serving import app as japp
+    from infercam_onnx_tpu.utils import cache as jcache
+    from infercam_onnx_tpu_torch.serving import app as tapp
+
+    served = {}
+
+    def capture(name):
+        async def serve_forever(**kw):
+            served[name] = kw
+        return serve_forever
+
+    monkeypatch.setattr(japp, "serve_forever", capture("jax"))
+    monkeypatch.setattr(jcache, "enable_compilation_cache", lambda: None)
+    monkeypatch.setattr(tapp, "serve_forever", capture("port"))
+    assert jserve.main(list(argv)) == 0
+    assert tserve.main(["--device", "cpu", *argv]) == 0
+    got, want = served["port"], served["jax"]
+    for key in ("warmup_resolutions", "warmup_async"):
+        assert got[key] == want[key]
+    port_cfg, jax_cfg = got["engine_config"], want["engine_config"]
+    for field in ("batch_buckets", "queue_capacity", "batch_window_ms",
+                  "coalesce_streams", "decode_scale", "decode_mode"):
+        assert getattr(port_cfg, field) == getattr(jax_cfg, field), field
+    assert port_cfg.decode_mode == "ycbcr"
+    assert port_cfg.annotate_mode == "host"
 
 
 # -- live serving on the CPU ---------------------------------------------
@@ -525,6 +581,143 @@ def test_corrupt_frame_does_not_kill_worker(detector, small_dir):
 
     records = asyncio.run(run())
     assert records[0]["width"] == 64 and records[0]["height"] == 48
+
+
+def _detections_of(packed_row: np.ndarray) -> list[dict]:
+    """The "detections" of the NDJSON record of one packed output row."""
+    return [{"bbox": [float(v) for v in packed_row[d, :4]],
+             "confidence": float(packed_row[d, 4])}
+            for d in range(int(packed_row[:, 5].sum()))]
+
+
+def _tap_units(server) -> list[dict]:
+    """Every unit the worker's device stage dispatches, from now on."""
+    units, dispatch = [], server.worker._device_stage
+
+    def tap(batch_units):
+        units.extend(batch_units)
+        return dispatch(batch_units)
+
+    server.worker._device_stage = tap
+    return units
+
+
+def test_ycbcr_server_publishes_run_device_ycbcr_packed(detector):
+    """A server in ycbcr mode serves detection-only frames through the
+    packed-plane path: each published record equals
+    run_device_ycbcr_packed on the same padded batch outside the worker,
+    and the dispatched batch holds the shim's packed rows."""
+    datas = [p.read_bytes() for p in sorted(SYNTH_PICS.glob("*.jpg"))]
+
+    async def run():
+        async with _serving(detector, decode_mode="ycbcr") as server:
+            units = _tap_units(server)
+            dets = await _Viewer.open(server.http_port, "/detections?name=y")
+            await _until(lambda: _subscribed(server, "y", "detections"),
+                         desc="viewer")
+            # one frame at a time, so record i answers frame i
+            source = _GatedSource(datas, lambda i: len(dets.records()) >= i)
+            await send_stream(source, ClientConfig(
+                address=f"127.0.0.1:{server.socket_port}", channel="y"))
+            await dets.wait(lambda v: len(v.records()) == len(datas))
+            await dets.close()
+            return units, dets.records()
+
+    units, records = asyncio.run(run())
+    assert len(units) == len(records) == 4
+    geom = native_jpeg.load().decode_ycbcr_batch(datas[:1])[1]
+    assert sum(len(r["detections"]) for r in records) >= 10
+    for unit, rec, data in zip(units, records, datas):
+        assert unit["geom"] == geom and unit["n"] == 1
+        packed, _ = native_jpeg.load().decode_ycbcr_batch([data])
+        np.testing.assert_array_equal(unit["batch"].numpy(), packed)
+        want = detector.run_device_ycbcr_packed(
+            unit["batch"], unit["geom"], pack_output=True).numpy()
+        assert (rec["width"], rec["height"]) == (640, 480)
+        assert rec["detections"] == _detections_of(want[0])
+
+
+def test_ycbcr_server_face_stream_takes_the_pixels_path(detector):
+    """In ycbcr mode a stream with a /face_stream viewer still gets
+    annotated 640x480 parts: its frames take the pixels path, while a
+    detection-only stream beside it takes the packed planes."""
+    async def run():
+        async with _serving(detector, decode_mode="ycbcr",
+                            queue_capacity=8) as server:
+            units = _tap_units(server)
+            port = server.http_port
+            faces = await _Viewer.open(port, "/face_stream?name=f")
+            dets = await _Viewer.open(port, "/detections?name=d")
+            await _until(lambda: _subscribed(server, "f")
+                         and _subscribed(server, "d", "detections"),
+                         desc="viewers")
+            address = f"127.0.0.1:{server.socket_port}"
+            await asyncio.gather(*(send_stream(
+                ReplaySource(str(SYNTH_PICS), fps=20),
+                ClientConfig(address=address, channel=name), max_frames=4)
+                for name in ("f", "d")))
+            await faces.wait(lambda v: len(v.parts()) >= 2)
+            await dets.wait(lambda v: len(v.records()) >= 2)
+            await faces.close()
+            await dets.close()
+            return units, faces.parts(), dets.records()
+
+    units, parts, records = asyncio.run(run())
+    for part in parts:
+        assert codec.decode_rgb(part).shape == (480, 640, 3)
+    assert all((r["width"], r["height"]) == (640, 480) for r in records)
+    keys = {"f": stream_key("f"), "d": stream_key("d")}
+    for unit in units:
+        members = {job.key for job, _ in unit["members"]}
+        if unit["geom"] is None:
+            assert members == {keys["f"]}
+            assert unit["batch"].shape[1:] == (480, 640, 3)
+        else:
+            assert members == {keys["d"]}
+            assert unit["batch"].ndim == 2
+    assert {u["geom"] is None for u in units} == {True, False}
+
+
+def test_ycbcr_server_drops_and_counts_a_corrupt_frame(detector):
+    """In ycbcr mode a corrupt frame is dropped and counted; a grayscale
+    JPEG, which the packed-plane decode refuses, is pixel-decoded and
+    served instead of dropped; a good frame takes the packed planes."""
+    good = (SYNTH_PICS / "synthetic-0.jpg").read_bytes()
+    buf = io.BytesIO()
+    Image.new("L", (64, 48), 90).save(buf, "JPEG")
+    gray = buf.getvalue()
+
+    async def run():
+        async with _serving(detector, {"meter_period_s": 3600.0},
+                            decode_mode="ycbcr") as server:
+            units = _tap_units(server)
+            viewer = await _Viewer.open(server.http_port,
+                                        "/detections?name=c")
+            await _until(lambda: _subscribed(server, "c", "detections"),
+                         desc="viewer")
+            _, writer = await asyncio.open_connection(
+                "127.0.0.1", server.socket_port)
+            dropped = METER.dropped
+            outcomes = []
+            for data in (b"\xff\xd8 this is not a jpeg", gray, good):
+                seen = len(viewer.records())
+                writer.write(tproto.frame_encode(tproto.encode_proto_msg(
+                    tproto.FrameMsg("c", data))))
+                await writer.drain()
+                await _until(lambda: len(viewer.records()) > seen
+                             or METER.dropped > dropped, desc="outcome")
+                outcomes.append((len(viewer.records()) - seen,
+                                 METER.dropped - dropped))
+                dropped = METER.dropped
+            writer.close()
+            await viewer.close()
+            return outcomes, viewer.records(), units
+
+    outcomes, records, units = asyncio.run(run())
+    assert outcomes == [(0, 1), (1, 0), (1, 0)]
+    assert [(r["width"], r["height"]) for r in records] == [(64, 48),
+                                                           (640, 480)]
+    assert [u["geom"] is None for u in units] == [True, False]
 
 
 def test_submit_queue_drops_when_full(detector):
