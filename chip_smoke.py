@@ -39,6 +39,25 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    device time of the whole program and of the chroma upsample + colour
    tail alone; the float32 program on the card against the CPU (counts
    equal, boxes within 1e-5, confidences within 5e-5);
+4c. annotate_path: the device annotate tail on those 16 frames
+   (RFB-320 bf16, frozen weights): run_device_annotated (pixels) and
+   run_device_ycbcr_annotated (packed planes, scale 1), one NMS launch a
+   call; each frame's coefficients entropy-coded (encode_coefs) and
+   decoded within a mean absolute difference of 4 of the host's draw +
+   encode_rgb; the packed detections bit-identical to the detection-only
+   program's; the float32 programs on the card against the CPU
+   (coefficients >= 99.9% equal, never 2 apart; detections as in 4b) and
+   unmoved with TF32 on through either API; ms per batch in turns with
+   the detection-only programs, the tail's and the label layer's device
+   time and ops, bytes read back, host encode_coefs against draw +
+   encode_rgb per frame;
+4d. coefficients_path: detect_from_coefficients and the splice transcode
+   (k=768) on the same frames' entropy-decoded blocks: box parity >= 0.9
+   with the pixels path, every block the splice did not touch bit-exact,
+   every touched block selected where meta[0] <= k and the budget filled
+   where a frame overflows it, float32 card against CPU (the splice's meta equal, its
+   coefficients as in 4c), one NMS launch a call, ms per batch in turns,
+   read_coefficient_batch's and the 12-bit packing's host ms;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -54,13 +73,23 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    decode_mode="ycbcr" at scale 1: detection-only frames take the packed
    planes, stream 0's (it has a /face_stream viewer) the pixels path, and
    checked batches must equal run_device_ycbcr_packed (or run_device);
-6. the kernels line, the nvidia-smi line, and the final status line.
+5b. serve_ycbcr_annotate and 5c. serve_coefficients: the same traffic and
+   checks with annotate_mode="device", in ycbcr and coefficients decode:
+   stream 0's frames take the annotated unit (ycbcr_annot, or the splice
+   coef_annot), the others the detection-only one. In the check round
+   every unit's records must equal its program's outputs on the same
+   padded batch outside the worker, and each of stream 0's /face_stream
+   parts the JPEG made from them (encode_coefs, or the splice), with the
+   card held back after every program; the splice fallbacks are counted;
+6. the whole run's seconds, the kernels line, the nvidia-smi line, and
+   the final status line.
 
 Needs one CUDA card and the repository's sources; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import pathlib
 import subprocess
@@ -813,13 +842,364 @@ def ycbcr_path(device, jpegs: list[bytes]) -> dict:
     return out
 
 
+# -- phase 4c and 4d: the device annotate tail and the coefficients mode ---
+
+SPLICE_K = 768  # EngineConfig.annotate_splice_blocks' default
+
+
+def coefficient_agreement(got, want) -> dict:
+    """Share of equal quantized coefficients and the largest difference."""
+    import numpy as np
+
+    got, want = (np.asarray(a).astype(np.int32) for a in (got, want))
+    return {"n": int(got.size), "equal_share": float((got == want).mean()),
+            "max_diff": int(np.abs(got - want).max(initial=0))}
+
+
+def unpacked(coefs) -> "np.ndarray":
+    """[B, m] pack12 rows (a tensor anywhere) -> [B, m*2//3] int16."""
+    import numpy as np
+
+    from infercam_onnx_tpu_torch.ops.jpeg_encode_device import unpack12
+
+    return np.stack([unpack12(row) for row in coefs.cpu().numpy()])
+
+
+def detections_agreement(got, want) -> dict:
+    """Packed detections of the card against the CPU's."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    return {"counts_equal": bool(torch.equal(got[..., 5], want[..., 5])),
+            "detections": int(want[..., 5].sum()),
+            "max_box_diff": float((got[..., :4] - want[..., :4]).abs().max()),
+            "max_conf_diff": float((got[..., 4] - want[..., 4]).abs().max())}
+
+
+def in_turns(fns: dict, iters: int = 20) -> dict:
+    """ms per call of each of ``fns`` by CUDA events, in turns: a, b, b, a
+    (each entry the two readings)."""
+    names = list(fns)
+    order = names + names[::-1]
+    out = {n: [] for n in names}
+    for n in order:
+        out[n].append(time_ms(fns[n], iters))
+    return out
+
+
+def annotate_path(device, jpegs: list[bytes]) -> dict:
+    """The two annotated programs of the device annotate tail (RFB-320
+    bf16, frozen weights) on the 16 frames of ``jpegs``: pixels
+    (run_device_annotated on the shim's RGB decode) and ycbcr
+    (run_device_ycbcr_annotated on its packed planes, scale 1). Each
+    frame's coefficients are entropy-coded (encode_coefs) and decoded
+    again, against the host's draw + encode_rgb of the same detections;
+    the packed detections against the detection-only program on the same
+    batch; the float32 programs on the card against the CPU, and with
+    TF32 on through either API; times in turns with the detection-only
+    programs, the tail's device time, and the host's time a frame."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
+    from infercam_onnx_tpu_torch.draw import draw_detections
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.ops import jpeg_encode_device as enc
+    from infercam_onnx_tpu_torch.ops.jpeg_device import unpack_ycbcr_planes
+
+    shim = native_jpeg.load()
+    quant = native_jpeg.quant_tables_cached(95)
+    frames = np.stack(shim.decode_batch(jpegs))
+    packed, geom = shim.decode_ycbcr_batch(jpegs)
+    frames_dev = torch.from_numpy(frames).to(device)
+    packed_dev = torch.from_numpy(np.array(packed)).to(device)
+    planes = {"detect_annotate": lambda: enc.rgb_to_ycbcr_planes(
+                  frames_dev, sampling=(2, 2)),
+              "detect_annotate_from_ycbcr": lambda: unpack_ycbcr_planes(
+                  packed_dev, **{k: geom[k] for k in ("y_pw", "y_ph", "c_pw",
+                                                      "c_ph")})}
+    geoms = {"detect_annotate": enc.plane_geometry(640, 480, (2, 2)),
+             "detect_annotate_from_ycbcr": geom}
+
+    def programs(det, frames_in, packed_in):
+        return {"detect_annotate": (
+                    lambda: det.run_device_annotated(frames_in),
+                    lambda: det.run_device(frames_in, pack_output=True)),
+                "detect_annotate_from_ycbcr": (
+                    lambda: det.run_device_ycbcr_annotated(packed_in, geom),
+                    lambda: det.run_device_ycbcr_packed(packed_in, geom,
+                                                        pack_output=True))}
+
+    det = Detector(weights=str(WEIGHTS), device=device)
+    out = {"by_program": {}}
+    for name, (annotated, detect_only) in programs(det, frames_dev,
+                                                   packed_dev).items():
+        annotated()  # the first call's cuDNN choices and matrices
+        detect_only()
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        coefs, pdet = annotated()
+        torch.cuda.synchronize()
+        launches = nms.kernel.launches
+        plain = detect_only()
+        coefs_h, pdet_h = coefs.cpu().numpy(), pdet.cpu().numpy()
+        g = geoms[name]
+        dets = unpack_detections(pdet_h)
+        jpeg = [shim.encode_coefs(*enc.split_coefs(coefs_h[i], g),
+                                  (640, 480), g["sampling"], quant)
+                for i in range(len(frames))]
+        host = [codec.encode_rgb(draw_detections(f, d))
+                for f, d in zip(frames, dets)]
+        mad = [float(np.abs(codec.decode_rgb(a).astype(np.int32)
+                            - codec.decode_rgb(b)).mean())
+               for a, b in zip(jpeg, host)]
+        tail_planes = planes[name]
+
+        def tail(tail_planes=tail_planes, pdet=pdet):
+            drawn = enc.render_overlay_ycbcr(*tail_planes(), pdet, width=640,
+                                             height=480, sampling=(2, 2))
+            return enc.encode_planes(*drawn, det._encode_quant(95))
+
+        tail_prof = profile_device(tail, 10)
+        prof = profile_device(annotated, 10)
+        turns = in_turns({"detect_only": detect_only, "annotated": annotated})
+        out["by_program"][name] = {
+            "launches": {"nms": launches},
+            "sanity": check_packed(pdet, det.config.min_confidence),
+            "detections_identical_to_detect_only": bool(torch.equal(pdet,
+                                                                    plain)),
+            "mad_vs_host_draw_encode": mad,
+            "readback_bytes": coefs.nbytes + pdet.nbytes,
+            "coefs_bytes_per_frame": coefs.shape[1],
+            "ms_per_batch_in_turns": turns,
+            "device_busy_ms_per_batch": prof["device_ms"],
+            "profiled_wall_ms_per_batch": prof["wall_ms"],
+            "device_idle_share": prof["idle_share"],
+            "device_ops_per_batch": prof["device_ops_per_iter"],
+            "top_device_ms": prof["top"],
+            "tail_device_ms": tail_prof["device_ms"],
+            "tail_device_ops": tail_prof["device_ops_per_iter"],
+            "tail_top_device_ms": tail_prof["top"],
+            "host_encode_coefs_ms_per_frame": host_ms(lambda: [
+                shim.encode_coefs(*enc.split_coefs(coefs_h[i], g), (640, 480),
+                                  g["sampling"], quant)
+                for i in range(len(frames))]) / len(frames),
+            "host_draw_encode_rgb_ms_per_frame": host_ms(lambda: [
+                codec.encode_rgb(draw_detections(f, d))
+                for f, d in zip(frames, dets)], 3) / len(frames),
+        }
+
+    # the label layer alone at the main path's widths: B=16, D=64 strips
+    # on the luma plane and both 4:2:0 chroma planes (dense: its cost does
+    # not depend on where the labels are)
+    b, d = frames.shape[0], det.config.max_detections
+    rng = np.random.default_rng(0)
+    conf = torch.from_numpy(rng.uniform(0.5, 1.0, (b, d)).astype(
+        np.float32)).to(device)
+    strips = enc._label_strips(conf)
+    xs, ys = (torch.from_numpy(rng.integers(0, hi, (b, d))).to(device)
+              for hi in (640 - 70, 480 - 20))
+    lum = torch.zeros(b, 480, 640, device=device)
+    chroma = torch.zeros(b, 240, 320, device=device)
+    cstrips = strips.reshape(b, d, 10, 2, 35, 2).mean(dim=(3, 5))
+
+    def labels():
+        enc._stamp_labels(lum, xs, ys, strips, enc.GREEN_Y)
+        for value in (enc.GREEN_CB, enc.GREEN_CR):
+            enc._stamp_labels(chroma, xs // 2, ys // 2, cstrips, value)
+
+    lab = profile_device(labels, 10)
+    out["label_layer_b16_d64"] = {"device_ms": lab["device_ms"],
+                                  "device_ops": lab["device_ops_per_iter"],
+                                  "top_device_ms": lab["top"]}
+
+    # float32: the card against the CPU, and TF32 switched on
+    config = DetectorConfig(compute_dtype="float32")
+    f32 = {dev: programs(Detector(config, weights=str(WEIGHTS), device=dev),
+                         frames, packed)
+           for dev in (device, "cpu")}
+    out["float32_cuda_vs_cpu"], out["float32_tf32_moved"] = {}, {}
+    for name in programs(det, frames, packed):
+        set_tf32("off")
+        got = f32[device][name][0]()
+        want = f32["cpu"][name][0]()
+        out["float32_cuda_vs_cpu"][name] = {
+            "coefficients": coefficient_agreement(unpacked(got[0]),
+                                                  unpacked(want[0])),
+            "detections": detections_agreement(got[1], want[1])}
+        base = got[0].cpu()
+        moved = {}
+        for state in ("on_legacy_api", "on_fp32_precision_api"):
+            set_tf32(state)
+            moved[state] = not torch.equal(f32[device][name][0]()[0].cpu(),
+                                           base)
+        out["float32_tf32_moved"][name] = moved
+    set_tf32("default")
+    return out
+
+
+def coefficients_path(device, jpegs: list[bytes]) -> dict:
+    """The coefficients mode (RFB-320 bf16, frozen weights) on the 16
+    frames of ``jpegs``: detect_from_coefficients
+    (run_device_coefficients_arrays) and the splice transcode
+    (run_device_coefficients_annotated_packed, k=768) on the host's
+    entropy-decoded blocks. Box parity with run_device on the shim's RGB
+    decode of the same bytes, every block the splice did not touch
+    bit-exact, meta[0] <= k, float32 card against CPU, times in turns with
+    the pixels program, and the host's entropy decode and packing."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import (Detector,
+                                                  pack_coefficient_batch,
+                                                  unpack_detections)
+    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
+    from infercam_onnx_tpu_torch.ops.jpeg_encode_device import splice_blocks
+
+    y, cb, cr, quant, wh, samp = read_coefficient_batch(jpegs)
+    packed12, _, shapes = pack_coefficient_batch(y, cb, cr, quant)
+    frames = np.stack(native_jpeg.load().decode_batch(jpegs))
+
+    def programs(det, to):
+        arrays = [to(a) for a in (y, cb, cr, quant.astype(np.int32))]
+        packed_in = to(packed12)
+        return {"detect_from_coefficients": lambda: (
+                    det.run_device_coefficients_arrays(
+                        *arrays, wh, sampling=samp, pack_output=True)),
+                "detect_annotate_splice": lambda: (
+                    det.run_device_coefficients_annotated_packed(
+                        packed_in, arrays[3], wh=wh, shapes=shapes,
+                        sampling=samp, k=SPLICE_K))}
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    det = Detector(weights=str(WEIGHTS), device=device)
+    frames_dev = on_card(frames)
+    progs = programs(det, on_card)
+    out = {"geometry": {"wh": wh, "sampling": samp, "y_blocks": y.shape[1:3],
+                        "c_blocks": cb.shape[1:3]},
+           "upload_bytes": {"detect_from_coefficients": int(
+                                y.nbytes + cb.nbytes + cr.nbytes
+                                + quant.size * 4),
+                            "detect_annotate_splice": int(
+                                packed12.nbytes + quant.size * 4)},
+           "host_read_coefficient_batch_ms": host_ms(
+               lambda: read_coefficient_batch(jpegs)),
+           "host_pack_coefficient_batch_ms": host_ms(
+               lambda: pack_coefficient_batch(y, cb, cr, quant)),
+           "by_program": {}}
+    for name, fn in progs.items():
+        fn()
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        rec = {"launches": {"nms": nms.kernel.launches}}
+        pdet = res if name == "detect_from_coefficients" else res[2]
+        rec["sanity"] = check_packed(pdet, det.config.min_confidence)
+        rec["readback_bytes"] = sum(
+            t.nbytes for t in (res if isinstance(res, tuple) else (res,)))
+        prof = profile_device(fn, 10)
+        rec.update({"device_busy_ms_per_batch": prof["device_ms"],
+                    "profiled_wall_ms_per_batch": prof["wall_ms"],
+                    "device_idle_share": prof["idle_share"],
+                    "device_ops_per_batch": prof["device_ops_per_iter"],
+                    "top_device_ms": prof["top"]})
+        out["by_program"][name] = rec
+    fused = progs["detect_from_coefficients"]()
+    pixels = det.run_device(frames_dev, pack_output=True)
+    out["by_program"]["detect_from_coefficients"]["parity_vs_pixels"] = (
+        parity_report(unpack_detections(fused.cpu().numpy()),
+                      unpack_detections(pixels.cpu().numpy()),
+                      iou_thresh=0.8, conf_tol=0.05).as_dict())
+    blocks, meta, _ = (t.cpu().numpy()
+                       for t in progs["detect_annotate_splice"]())
+    untouched_equal, touched, selected = [], [], []
+    for i in range(len(jpegs)):
+        spliced = splice_blocks(y[i], cb[i], cr[i], meta[i], blocks[i])
+        flat = [np.concatenate([p.reshape(-1, 64) for p in ps])
+                for ps in ((y[i], cb[i], cr[i]), spliced)]
+        keep = np.ones(len(flat[0]), bool)
+        keep[meta[i, 1:][meta[i, 1:] >= 0]] = False
+        untouched_equal.append(bool(np.array_equal(flat[0][keep],
+                                                   flat[1][keep])))
+        touched.append(int(meta[i, 0]))
+        selected.append(int((meta[i, 1:] >= 0).sum()))
+    out["by_program"]["detect_annotate_splice"].update({
+        "k": SPLICE_K, "touched_blocks": touched, "selected_blocks": selected,
+        "overflowed_frames": sum(t > SPLICE_K for t in touched),
+        "blocks_total": int(flat[0].shape[0]),
+        "untouched_bit_exact": untouched_equal})
+    out["ms_per_batch_in_turns"] = in_turns({
+        "pixels": lambda: det.run_device(frames_dev, pack_output=True),
+        **progs})
+
+    config = DetectorConfig(compute_dtype="float32")
+    f32 = {dev: programs(Detector(config, weights=str(WEIGHTS), device=dev),
+                         on_card if dev != "cpu" else torch.from_numpy)
+           for dev in (device, "cpu")}
+    got = {n: fn() for n, fn in f32[device].items()}
+    want = {n: fn() for n, fn in f32["cpu"].items()}
+    out["float32_cuda_vs_cpu"] = {
+        "detect_from_coefficients": {"detections": detections_agreement(
+            got["detect_from_coefficients"],
+            want["detect_from_coefficients"])},
+        "detect_annotate_splice": {
+            "detections": detections_agreement(
+                got["detect_annotate_splice"][2],
+                want["detect_annotate_splice"][2]),
+            "meta_equal": bool(torch.equal(got["detect_annotate_splice"][1]
+                                           .cpu(),
+                                           want["detect_annotate_splice"][1])),
+            "coefficients": coefficient_agreement(
+                unpacked(got["detect_annotate_splice"][0]),
+                unpacked(want["detect_annotate_splice"][0]))}}
+    return out
+
+
+def check_annotate(rec: dict) -> None:
+    """The annotate and coefficients phases' failure conditions for one
+    program's record."""
+    if rec["launches"]["nms"] != 1:
+        raise SystemExit(f"a program launched the nms kernel "
+                         f"{rec['launches']['nms']} times, not once")
+    if not rec["sanity"]["ok"]:
+        raise SystemExit("a program's detections failed their sanity checks")
+
+
+def check_card_vs_cpu(agreement: dict, what: str) -> None:
+    """Coefficients: >= 99.9% equal and never more than 1 apart;
+    detections: counts equal, boxes within 1e-5, confidences within 5e-5."""
+    c = agreement.get("coefficients")
+    if c and (c["equal_share"] < 0.999 or c["max_diff"] > 1):
+        raise SystemExit(f"{what}: float32 coefficients on the card differ "
+                         f"from the CPU's: {c}")
+    d = agreement["detections"]
+    if (not d["counts_equal"] or d["max_box_diff"] > 1e-5
+            or d["max_conf_diff"] > 5e-5):
+        raise SystemExit(f"{what}: float32 detections on the card differ "
+                         f"from the CPU's: {d}")
+
+
 # -- phase 5: the serving tier ----------------------------------------------
 
 SERVE_STREAMS = 16
 SERVE_FPS = 30.0
 SERVE_SECONDS = 10.0
-SERVE_STAGES = ("decode", "upload", "device", "device_ycbcr", "draw",
-                "encode")
+SERVE_STAGES = ("decode", "upload", "device", "device_ycbcr", "device_coef",
+                "device_annot", "draw", "encode")
+# the programs the worker dispatches, each lagged in the check round
+LAGGED = ("run_device", "run_device_ycbcr_packed", "run_device_annotated",
+          "run_device_ycbcr_annotated", "run_device_coefficients_arrays",
+          "run_device_coefficients_annotated_packed")
 SERVE_CHECK_FRAMES = 4  # per stream, in the check round before the window
 SERVE_LAG_CYCLES = 300_000_000  # ~0.15 s of the card after a checked batch
 SERVE_NAMES = [f"cam{i}" for i in range(SERVE_STREAMS)]
@@ -919,7 +1299,36 @@ def _detections(packed_row) -> list[dict]:
             for d in range(int(packed_row[:, 5].sum()))]
 
 
-async def _serve(device, decode_mode: str) -> dict:
+def expected_face_jpeg(unit: dict, outs: list, i: int) -> bytes:
+    """The /face_stream JPEG of row ``i`` of a device-annotated unit, from
+    its program's outputs (host arrays, packed detections last) computed
+    outside the worker: the encoded coefficients, or the splice (the host
+    draw from the JPEG bytes where the splice falls back)."""
+    import numpy as np
+
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.detector import unpack_detections
+    from infercam_onnx_tpu_torch.draw import draw_detections
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import jpeg_encode_device as enc
+
+    shim = native_jpeg.load()
+    if unit["kind"] == "coef_annot":
+        job, (y, cb, cr, quant, wh, samp) = unit["members"][i]
+        blocks, meta = outs[0][i], outs[1][i]
+        if meta[0] <= SPLICE_K and np.array_equal(quant[0, 1], quant[0, 2]):
+            return shim.encode_coefs(*enc.splice_blocks(
+                y[0], cb[0], cr[0], meta, blocks), wh, samp, quant[0, :2])
+        dets = unpack_detections(outs[-1][i:i + 1])[0]
+        return codec.encode_rgb(draw_detections(codec.decode_rgb(job.data),
+                                                dets))
+    geom = unit["geom"] or enc.plane_geometry(unit["w"], unit["h"], (2, 2))
+    return shim.encode_coefs(*enc.split_coefs(outs[0][i], geom),
+                             (geom["width"], geom["height"]), geom["sampling"],
+                             native_jpeg.quant_tables_cached(95))
+
+
+async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
     import asyncio
 
     import torch
@@ -941,7 +1350,8 @@ async def _serve(device, decode_mode: str) -> dict:
         engine_config=EngineConfig(batch_buckets=(1, 2, 4, 8, 16),
                                    queue_capacity=32, batch_window_ms=4.0,
                                    coalesce_streams=True,
-                                   decode_mode=decode_mode),
+                                   decode_mode=decode_mode,
+                                   annotate_mode=annotate_mode),
         detector=det, warmup_resolutions=[(480, 640)])
     warmup_s = time.perf_counter() - t0
 
@@ -967,20 +1377,19 @@ async def _serve(device, decode_mode: str) -> dict:
             10.0, "the frames sent were not all served or dropped")
         return load
 
-    # The check round, before the measured window, records what the worker
-    # dispatched (each batch, its streams in row order, and the packed
-    # planes' geometry, None for frames) and every NDJSON record it handed
-    # to a /detections broadcast. The card is held back after each batch's
-    # program, before its readback, for longer than a decode, so a publish
-    # stage that read the pinned output before the readback's event would
-    # publish a buffer the copy has not filled yet; without the lag the
-    # host, far slower than the card, never reads early.
+    # The check round, before the measured window, records every unit the
+    # worker dispatched (each batch with its members in row order) and
+    # every NDJSON record and /face_stream part it handed to a broadcast.
+    # The card is held back after each batch's program, before its
+    # readback, for longer than a decode, so a publish stage that read the
+    # pinned outputs before the readback's event would publish buffers the
+    # copy has not filled yet; without the lag the host, far slower than
+    # the card, never reads early.
     dispatched, published = [], {}
     device_stage, publish = worker._device_stage, worker._publish
 
     def device_tap(units):
-        dispatched.extend(([job.key for job, _ in u["members"]], u["batch"],
-                           u["geom"]) for u in units)
+        dispatched.extend(units)
         return device_stage(units)
 
     def publish_tap(chan, item):
@@ -995,11 +1404,6 @@ async def _serve(device, decode_mode: str) -> dict:
             return out
         return run
 
-    def detect(batch, geom):
-        if geom is None:
-            return det.run_device(batch, pack_output=True)
-        return det.run_device_ycbcr_packed(batch, geom, pack_output=True)
-
     try:
         def watched():
             chans = [router._detections.get(k) for k in keys]
@@ -1008,16 +1412,19 @@ async def _serve(device, decode_mode: str) -> dict:
 
         await _until(watched, 60.0, "the viewers did not subscribe")
         det_chans = {k: router._detections[k] for k in keys}
-        published.update((id(c), []) for c in det_chans.values())
+        face_chan = router._inferred[keys[0]]
+        published.update((id(c), []) for c in (*det_chans.values(),
+                                                face_chan))
         worker._device_stage, worker._publish = device_tap, publish_tap
-        det.run_device = lagging(det.run_device)
-        det.run_device_ycbcr_packed = lagging(det.run_device_ycbcr_packed)
+        for name in LAGGED:
+            setattr(det, name, lagging(getattr(det, name)))
         METER.drain()
         try:
             await send(SERVE_CHECK_FRAMES)
         finally:
             worker._device_stage, worker._publish = device_stage, publish
-            del det.run_device, det.run_device_ycbcr_packed
+            for name in LAGGED:
+                delattr(det, name)
 
         # the measured window, through the worker as it is
         METER.drain()
@@ -1046,15 +1453,24 @@ async def _serve(device, decode_mode: str) -> dict:
                            for d in r["detections"])
                    for recs in records for r in recs)
 
-    # each checked batch's published records against run_device on the
-    # same padded batch outside the worker: a stream's n-th record is its
-    # row in the n-th batch that holds it
+    # each checked batch's published records against its program run on
+    # the same padded batch outside the worker: a stream's n-th record is
+    # its row in the n-th batch that holds it; stream 0's /face_stream
+    # parts, in order, against the JPEG made from that program's outputs
+    # (device annotation; the host path's parts are not checked)
+    from infercam_onnx_tpu_torch.protocol import as_jpeg_stream_item
+
     torch.cuda.synchronize()
     identical, seen, ahead = [], 0, {k: 0 for k in keys}
+    faces_identical, face_ahead = [], 0
     viewer_lines = {k: set(lines) for k, lines in zip(keys,
                                                       load["records"])}
-    for members, batch, geom in dispatched:
-        want = detect(batch, geom).cpu().numpy()
+    for unit in dispatched:
+        members = [job.key for job, _ in unit["members"]]
+        outs = worker._program(unit)
+        outs = [t.cpu().numpy() for t in (
+            outs if isinstance(outs, tuple) else (outs,))]
+        want = outs[-1]
         served = [published[id(det_chans[k])][ahead[k]] for k in members]
         identical.append([json.loads(item)["detections"] for item in served]
                          == [_detections(want[i])
@@ -1063,11 +1479,19 @@ async def _serve(device, decode_mode: str) -> dict:
                     for k, item in zip(members, served))
         for k in members:
             ahead[k] += 1
+        for i, (job, _) in enumerate(unit["members"]):
+            if job.reply is None:
+                continue
+            part = published[id(face_chan)][face_ahead]
+            face_ahead += 1
+            if unit["kind"] != "pixels" or unit["annotate"]:
+                faces_identical.append(part == as_jpeg_stream_item(
+                    expected_face_jpeg(unit, outs, i)))
 
     e2e = stages.get("e2e", {})
     return {
         "model": "RFB-320", "dtype": "bfloat16", "decode_mode": decode_mode,
-        "streams": SERVE_STREAMS,
+        "annotate_mode": annotate_mode, "streams": SERVE_STREAMS,
         "fps_per_stream": SERVE_FPS, "frame": [640, 480],
         "load_generator": "a child process: the port's senders and the "
                           "HTTP viewers in one event loop",
@@ -1086,22 +1510,26 @@ async def _serve(device, decode_mode: str) -> dict:
         "detection_records_ok": frame_ok,
         "face_parts": load["face_parts"],
         "face_part_shapes": load["face_part_shapes"],
+        "splice_fallbacks": worker.splice_fallbacks,
         # the check round, before the window
-        "checked_batch_buckets": [int(b.shape[0]) for _, b, _ in dispatched],
-        "checked_batches_packed_planes": sum(
-            g is not None for _, _, g in dispatched),
-        "checked_records": sum(len(m) for m, _, _ in dispatched),
+        "checked_batch_buckets": [u["n"] for u in dispatched],
+        "checked_batch_kinds": dict(collections.Counter(
+            u["kind"] + ("_annot" if u["annotate"] else "")
+            for u in dispatched)),
+        "checked_records": sum(u["n"] for u in dispatched),
         "checked_records_seen_by_viewers": seen,
         "checked_batches_lag_cycles": SERVE_LAG_CYCLES,
         "served_identical_to_run_device": identical,
+        "checked_face_parts_identical": faces_identical,
     }
 
 
-def serve_phase(device, decode_mode: str = "pixels") -> dict:
+def serve_phase(device, decode_mode: str = "pixels",
+                annotate_mode: str = "host") -> dict:
     """The port's server in this process on ``device``: RFB-320 bfloat16
     on the frozen weights, buckets 1-16, queue 32, a 4 ms gather window,
-    coalescing, ``decode_mode`` decode at scale 1 and host annotation,
-    warmed up at 640x480.
+    coalescing, ``decode_mode`` decode at scale 1 and ``annotate_mode``
+    annotation, warmed up at 640x480.
     The traffic comes from ``load_generator`` in a child process: 16 port
     senders replay the synthetic pictures at 30 fps each, first for
     SERVE_CHECK_FRAMES frames (the check round), then for 10 s (the
@@ -1111,7 +1539,7 @@ def serve_phase(device, decode_mode: str = "pixels") -> dict:
     or dropped."""
     import asyncio
 
-    return asyncio.run(_serve(device, decode_mode))
+    return asyncio.run(_serve(device, decode_mode, annotate_mode))
 
 
 def check_serve(serve: dict) -> None:
@@ -1129,8 +1557,18 @@ def check_serve(serve: dict) -> None:
         raise SystemExit("a /detections viewer got no or malformed records")
     ident = serve["served_identical_to_run_device"]
     if not ident or not all(ident):
-        raise SystemExit("a served batch differs from run_device (or "
-                         "run_device_ycbcr_packed) on the same padded batch")
+        raise SystemExit("a served batch's detections differ from its "
+                         "program's on the same padded batch")
+    if not all(serve["checked_face_parts_identical"]):
+        raise SystemExit("a served /face_stream part differs from the JPEG "
+                         "of its program's outputs on the same padded batch")
+    if serve["annotate_mode"] == "device":
+        annot = {"pixels": "pixels_annot", "ycbcr": "ycbcr_annot",
+                 "coefficients": "coef_annot"}[serve["decode_mode"]]
+        if (not serve["checked_batch_kinds"].get(annot)
+                or not serve["checked_face_parts_identical"]):
+            raise SystemExit(f"no checked batch took the annotated unit "
+                             f"({annot})")
 
 
 def main() -> int:
@@ -1142,6 +1580,7 @@ def main() -> int:
     # without the repository's sources this fails before any output
     import infercam_onnx_tpu_torch  # noqa: F401
 
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     smi = gpu_info()
     name, power = (s.strip() for s in smi.split(",", 1))
@@ -1217,17 +1656,63 @@ def main() -> int:
         raise SystemExit(f"the float32 ycbcr program on the card differs "
                          f"from the CPU's: {f32}")
 
-    serve = serve_phase(device)
-    emit({"phase": "serve", "gpu": name, "power_limit": power, **serve})
-    check_serve(serve)
-    serve_ycbcr = serve_phase(device, "ycbcr")
-    emit({"phase": "serve_ycbcr", "gpu": name, "power_limit": power,
-          **serve_ycbcr})
-    check_serve(serve_ycbcr)
-    if not serve_ycbcr["checked_batches_packed_planes"]:
-        raise SystemExit("no checked batch of the ycbcr server took the "
-                         "packed planes")
+    annot = annotate_path(device, jpegs)
+    emit({"phase": "annotate_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", "batch": 16, "frame": [640, 480], **annot})
+    for prog, rec in annot["by_program"].items():
+        check_annotate(rec)
+        if not rec["detections_identical_to_detect_only"]:
+            raise SystemExit(f"{prog}: its detections differ from the "
+                             f"detection-only program's")
+        # the JAX package's bar (tests/test_annotate_device.py)
+        if max(rec["mad_vs_host_draw_encode"]) >= 4.0:
+            raise SystemExit(f"{prog}: an annotated frame is 4 or more levels "
+                             f"off the host's draw + encode on average")
+        check_card_vs_cpu(annot["float32_cuda_vs_cpu"][prog], prog)
+        if any(annot["float32_tf32_moved"][prog].values()):
+            raise SystemExit(f"{prog}: the float32 coefficients moved with "
+                             f"the process-wide TF32 setting")
+    coef = coefficients_path(device, jpegs)
+    emit({"phase": "coefficients_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", "batch": 16, "frame": [640, 480], **coef})
+    for prog, rec in coef["by_program"].items():
+        check_annotate(rec)
+        check_card_vs_cpu(coef["float32_cuda_vs_cpu"][prog], prog)
+    splice = coef["by_program"]["detect_annotate_splice"]
+    if not all(splice["untouched_bit_exact"]):
+        raise SystemExit("a block the splice did not touch differs from the "
+                         "input's")
+    # a frame within the budget ships every block it touched; one over it
+    # fills the budget and is flagged (meta[0] > k) for the host fallback,
+    # as in the JAX package, whose float32 program overflows 768 on frame
+    # 4 of these too
+    if splice["selected_blocks"] != [min(t, SPLICE_K)
+                                     for t in splice["touched_blocks"]]:
+        raise SystemExit(f"the splice's meta is inconsistent: touched "
+                         f"{splice['touched_blocks']}, selected "
+                         f"{splice['selected_blocks']}")
+    if not coef["float32_cuda_vs_cpu"]["detect_annotate_splice"]["meta_equal"]:
+        raise SystemExit("the float32 splice selected other blocks on the "
+                         "card than on the CPU")
+    if (coef["by_program"]["detect_from_coefficients"]["parity_vs_pixels"]
+            ["box_parity"] < 0.9):  # the JAX package's bar
+        raise SystemExit("coefficients detections fell below 0.9 box parity "
+                         "with the pixels path")
 
+    serves = {}
+    for phase, decode_mode, annotate_mode, unit in (
+            ("serve", "pixels", "host", "pixels"),
+            ("serve_ycbcr", "ycbcr", "host", "ycbcr"),
+            ("serve_ycbcr_annotate", "ycbcr", "device", "ycbcr"),
+            ("serve_coefficients", "coefficients", "device", "coef")):
+        rec = serves[phase] = serve_phase(device, decode_mode, annotate_mode)
+        emit({"phase": phase, "gpu": name, "power_limit": power, **rec})
+        check_serve(rec)
+        if not rec["checked_batch_kinds"].get(unit):
+            raise SystemExit(f"no checked batch of the {phase} server took "
+                             f"its {unit} unit")
+
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     head = ktime["a_random_b16_k256"]
     emit({"kernels": [{
         "name": "nms_greedy_suppress", "route": "cuda",
@@ -1241,8 +1726,9 @@ def main() -> int:
         "launches_by_path": {
             "detect_program": path["launches"]["nms"],
             "detect_from_ycbcr": ycbcr["by_scale"][1]["launches"]["nms"],
-            "serve": serve["nms_launches"],
-            "serve_ycbcr": serve_ycbcr["nms_launches"]},
+            **{prog: rec["launches"]["nms"] for prog, rec in (
+                *annot["by_program"].items(), *coef["by_program"].items())},
+            **{phase: rec["nms_launches"] for phase, rec in serves.items()}},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
         # at input (a), B=16 K=256 random boxes, as in the first version

@@ -4,7 +4,8 @@
 ``ClientConfig`` mirror ``infercam_onnx_tpu/config.py`` with the same
 names and defaults (the reference's serve-time setup: RFB-320, max_iou
 0.5, min_confidence 0.5, JPEG quality 95 at 4:2:0, ingest capacity 200,
-broadcast rings of 20), for the fields the ported serving path reads.
+broadcast rings of 20, device annotation), for the fields the ported
+serving path reads.
 """
 
 from __future__ import annotations
@@ -30,12 +31,6 @@ class DetectorConfig:
     compute_dtype: str = "bfloat16"
 
 
-# Decode and annotate modes of the JAX package that the port does not have
-# yet, with the ROADMAP item that ports each.
-_UNPORTED_DECODE = {"coefficients": "ROADMAP A.5 (coefficients and splice)"}
-_UNPORTED_ANNOTATE = {"device": "ROADMAP A.4 (device annotate tail)"}
-
-
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Micro-batching inference engine configuration."""
@@ -54,29 +49,36 @@ class EngineConfig:
     # scaling).
     decode_scale: int = 1
     # "pixels": host JPEG decode feeds uint8 RGB frames to the device.
-    # "ycbcr": detection-only frames are decoded on the host to packed
-    # YCbCr planes (entropy decode + IDCT, ~half the bytes of RGB at
-    # 4:2:0); chroma upsampling and colour conversion run on the device.
-    # Frames with a /face_stream viewer take the pixels path. The JAX
-    # package's "coefficients" mode is not ported yet.
+    # "ycbcr": frames are decoded on the host to packed YCbCr planes
+    # (entropy decode + IDCT, ~half the bytes of RGB at 4:2:0); chroma
+    # upsampling and colour conversion run on the device.
+    # "coefficients": the host only entropy-decodes; the IDCT runs on the
+    # device too. In both, frames with a /face_stream viewer take the
+    # device annotate tail with annotate_mode="device" (in coefficients
+    # mode the splice transcode), the pixels path with "host".
     decode_mode: str = "pixels"
-    # "host": /face_stream frames are drawn and JPEG-encoded on the host.
-    # The JAX package's default "device" (overlay and FDCT on the device)
-    # is not ported yet; asking for it raises instead of falling back.
-    annotate_mode: str = "host"
+    # "device": /face_stream frames get their overlay, FDCT and
+    # quantization on the device, and the host only entropy-codes them.
+    # It needs the native JPEG shim; where that cannot build, the server
+    # raises rather than fall back to the host draw path.
+    # "host": drawn with PIL and JPEG-encoded on the host.
+    annotate_mode: str = "device"
+    # Per-frame budget of overlay-touched 8x8 blocks the splice transcode
+    # reads back; a frame whose overlay touches more is annotated on the
+    # host from its JPEG bytes.
+    annotate_splice_blocks: int = 768
 
     def __post_init__(self):
-        for field, value, unported, ported in (
-                ("decode_mode", self.decode_mode, _UNPORTED_DECODE,
-                 ("pixels", "ycbcr")),
-                ("annotate_mode", self.annotate_mode, _UNPORTED_ANNOTATE,
-                 ("host",))):
-            if value in unported:
-                raise NotImplementedError(
-                    f"{field}={value!r} is not ported to PyTorch yet "
-                    f"({unported[value]}); use one of {ported}")
-            if value not in ported:
-                raise ValueError(f"unknown {field} {value!r}")
+        for field, value, known in (
+                ("decode_mode", self.decode_mode,
+                 ("pixels", "ycbcr", "coefficients")),
+                ("annotate_mode", self.annotate_mode, ("device", "host"))):
+            if value not in known:
+                raise ValueError(f"unknown {field} {value!r}; use one of "
+                                 f"{known}")
+        if self.annotate_splice_blocks < 1:
+            raise ValueError(f"annotate_splice_blocks must be >= 1, got "
+                             f"{self.annotate_splice_blocks}")
         if not self.batch_buckets or min(self.batch_buckets) < 1:
             raise ValueError(f"bad batch_buckets {self.batch_buckets!r}")
         if self.decode_scale not in (1, 2, 4, 8):

@@ -7,11 +7,20 @@ uint8 frames are the only host->device copy, and with
 ``pack_output=True`` one ``[B, D, 6]`` array is the only copy back.
 `detect_from_ycbcr` (``detect_from_ycbcr_impl``) takes the host's packed
 YCbCr planes instead, upsamples chroma and converts to RGB on the device,
-and runs the same program.
+and runs the same program; `detect_from_coefficients` takes the JPEGs'
+quantized DCT coefficients and runs the IDCT on the device too.
+
+The annotated programs (``detector.py:187-380`` there) run the same detect
+program and then the device annotate tail (``ops/jpeg_encode_device.py``):
+`detect_annotate` (pixels mode) and `detect_annotate_from_ycbcr` return
+the output JPEG's packed quantized coefficients beside the detections;
+`detect_annotate_splice` (coefficients mode) returns only the blocks its
+overlay touched. Each program launches the NMS kernel once.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -23,7 +32,14 @@ from infercam_onnx_tpu_torch.models import checkpoint
 from infercam_onnx_tpu_torch.models import ultraface as uf
 from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
+                                                     decode_plane,
+                                                     decode_rgb_device,
+                                                     read_coefficient_batch,
                                                      unpack_ycbcr_planes)
+from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
+    SUBSAMPLING_FACTORS, encode_planes, fdct_quant, pack12_np,
+    render_overlay_ycbcr, rgb_to_ycbcr_planes, select_changed_blocks,
+    unpack12_device)
 from infercam_onnx_tpu_torch.ops.postprocess import batched_postprocess
 from infercam_onnx_tpu_torch.ops.preprocess import Preprocessor, preprocess_images
 
@@ -103,6 +119,188 @@ def detect_from_ycbcr(
         pack_output=pack_output)
 
 
+@torch.inference_mode()
+def detect_from_coefficients(
+    model: uf.UltraFace,
+    priors: torch.Tensor,
+    y_coefs: torch.Tensor,  # [B, ybh, ybw, 64] int16, entropy-decoded
+    cb_coefs: torch.Tensor,
+    cr_coefs: torch.Tensor,
+    quant: torch.Tensor,  # [B, 3, 64]
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    sampling: tuple[int, int],
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+    pack_output: bool = False,
+):
+    """JPEG DCT coefficients in, padded detections out, all on the
+    device: dequantize, 8x8 IDCT, chroma upsample, BT.601, then
+    `detect_program`. The host only entropy-decodes. ``sampling`` is the
+    stream's luma (h, v) factor pair."""
+    rgb = decode_rgb_device(y_coefs, cb_coefs, cr_coefs, quant, width=width,
+                            height=height, sampling=sampling)
+    return detect_program(
+        model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
+        max_iou=max_iou, top_k=top_k, max_detections=max_detections,
+        pack_output=pack_output)
+
+
+@torch.inference_mode()
+def detect_annotate_from_ycbcr(
+    model: uf.UltraFace,
+    priors: torch.Tensor,
+    packed: torch.Tensor,  # [B, n] uint8 packed planes
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    quant2: torch.Tensor,  # [2, 64] encode quant tables (luma, chroma)
+    *,
+    width: int,
+    height: int,
+    y_pw: int,
+    y_ph: int,
+    c_pw: int,
+    c_ph: int,
+    sampling: tuple[int, int],
+    disp_dims: tuple[int, int] | None,
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+):
+    """The annotated program of the ycbcr mode: packed YCbCr planes in;
+    the output JPEG's quantized coefficients (`encode_planes`' packed
+    [B, m] uint8) and the packed [B, D, 6] detections out. Detection, the
+    overlay and the FDCT + quantize all run on the device; the host
+    entropy-codes (``native/jpeg.py`` `encode_coefs`)."""
+    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
+                                    c_pw=c_pw, c_ph=c_ph)
+    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                        sampling=sampling)
+    packed_det = detect_program(
+        model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
+        max_iou=max_iou, top_k=top_k, max_detections=max_detections,
+        pack_output=True)
+    y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=width,
+                                     height=height, sampling=sampling,
+                                     disp_dims=disp_dims)
+    return encode_planes(y, cb, cr, quant2), packed_det
+
+
+@torch.inference_mode()
+def detect_annotate_splice(
+    model: uf.UltraFace,
+    priors: torch.Tensor,
+    packed_coefs: torch.Tensor,  # [B, N*3//2] uint8 (pack12_np upload)
+    quant: torch.Tensor,  # [B, 3, 64] the input stream's quant tables
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    y_bw: int,
+    y_bh: int,
+    c_bw: int,
+    c_bh: int,
+    sampling: tuple[int, int],
+    k: int,
+    disp_dims: tuple[int, int] | None,
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+):
+    """The splice transcode of the coefficients mode: 12-bit packed
+    entropy-decoded coefficients in; the packed detections and only the
+    blocks the overlay touched, re-quantized with the input's own tables,
+    out (`select_changed_blocks`: blocks [B, k*96] uint8, meta [B, k+1]
+    int32). The host splices them into its own coefficients and
+    entropy-codes, so the annotated JPEG is bit-exact to the input outside
+    the drawn blocks, and the readback is bounded by k blocks."""
+    b = packed_coefs.shape[0]
+    coefs = unpack12_device(packed_coefs)
+    y_n, c_n = y_bw * y_bh * 64, c_bw * c_bh * 64
+    yc = coefs[:, :y_n].reshape(b, y_bh, y_bw, 64)
+    cbc = coefs[:, y_n:y_n + c_n].reshape(b, c_bh, c_bw, 64)
+    crc = coefs[:, y_n + c_n:].reshape(b, c_bh, c_bw, 64)
+    # dequantize + IDCT, snapped to the u8 grid a host decode gives: the
+    # overlay and the re-quantization both see pixels
+    y, cb, cr = (torch.clamp(torch.round(decode_plane(c, quant[:, i])),
+                             0.0, 255.0)
+                 for i, c in enumerate((yc, cbc, crc)))
+    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                        sampling=sampling)
+    packed_det = detect_program(
+        model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
+        max_iou=max_iou, top_k=top_k, max_detections=max_detections,
+        pack_output=True)
+    y, cb, cr, my, mc = render_overlay_ycbcr(
+        y, cb, cr, packed_det, width=width, height=height, sampling=sampling,
+        disp_dims=disp_dims, return_masks=True)
+    yq, cbq, crq = (fdct_quant(p, quant[:, i])
+                    for i, p in enumerate((y, cb, cr)))
+    blocks, meta = select_changed_blocks(yq, cbq, crq, my, mc, k)
+    return blocks, meta, packed_det
+
+
+@torch.inference_mode()
+def detect_annotate(
+    model: uf.UltraFace,
+    priors: torch.Tensor,
+    images: torch.Tensor,  # [B, H, W, 3] uint8
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    quant2: torch.Tensor,
+    *,
+    out_sampling: tuple[int, int],
+    disp_dims: tuple[int, int] | None,
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+):
+    """The annotated program of the pixels mode: detect, convert the
+    frames to YCbCr planes at ``out_sampling`` on the device, draw the
+    overlay, FDCT + quantize; returns (`encode_planes`' packed
+    coefficients, packed detections). The host entropy-codes instead of
+    drawing and encoding the whole JPEG."""
+    _, h, w, _ = images.shape
+    packed_det = detect_program(
+        model, priors, images, r_h, r_w, min_confidence=min_confidence,
+        max_iou=max_iou, top_k=top_k, max_detections=max_detections,
+        pack_output=True)
+    y, cb, cr = rgb_to_ycbcr_planes(images, sampling=out_sampling)
+    y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=w,
+                                     height=h, sampling=out_sampling,
+                                     disp_dims=disp_dims)
+    return encode_planes(y, cb, cr, quant2), packed_det
+
+
+def pack_coefficient_batch(y, cb, cr, quant):
+    """Host upload preparation of the splice path: the entropy-decoded
+    block arrays, concatenated and 12-bit packed. Returns (packed [B,
+    N*3//2] uint8, quant, ((y_bh, y_bw), (c_bh, c_bw)))."""
+    y, cb, cr = (np.asarray(p, np.int16) for p in (y, cb, cr))
+    b = y.shape[0]
+    flat = np.concatenate(
+        [y.reshape(b, -1), cb.reshape(b, -1), cr.reshape(b, -1)], axis=1)
+    return (pack12_np(flat), np.asarray(quant),
+            (tuple(y.shape[1:3]), tuple(cb.shape[1:3])))
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_quant(quality: int, device: torch.device) -> torch.Tensor:
+    """[2, 64] float32 copy on ``device`` of libjpeg's encode quant tables
+    at ``quality``."""
+    tables = native_jpeg.quant_tables_cached(quality)
+    return torch.from_numpy(tables.astype(np.float32)).to(device)
+
+
 def pack_detections(sel_boxes, sel_conf, count) -> torch.Tensor:
     """(boxes [B,D,4], confs [B,D], count [B]) -> ONE [B, D, 6] array
     (x0, y0, x1, y1, conf, valid); `unpack_detections` is the host-side
@@ -159,22 +357,31 @@ class Detector:
 
     # -- device program ----------------------------------------------------
 
+    def _on_device(self, a: torch.Tensor | np.ndarray) -> torch.Tensor:
+        """``a`` as a tensor on the detector's device (uint16 quant tables
+        as int32: torch's uint16 has few ops)."""
+        if isinstance(a, np.ndarray):  # torch wants writable memory
+            if a.dtype == np.uint16:
+                a = a.astype(np.int32)
+            a = torch.from_numpy(np.require(a, requirements="WC"))
+        return a.to(self.device)
+
+    def _thresholds(self) -> dict:
+        """The filter + NMS keyword arguments of every program."""
+        c = self.config
+        return dict(min_confidence=c.min_confidence, max_iou=c.max_iou,
+                    top_k=c.top_k, max_detections=c.max_detections)
+
     def run_device(self, images: torch.Tensor | np.ndarray, *,
                    pack_output: bool = False):
         """[B, H, W, 3] uint8 -> (boxes [B,D,4], confs [B,D], counts [B])
         as tensors on the device, or with ``pack_output`` one [B, D, 6]
         tensor. Returns without waiting for the device."""
-        if isinstance(images, np.ndarray):  # torch wants writable memory
-            images = torch.from_numpy(np.require(images, requirements="WC"))
-        images = images.to(self.device)
+        images = self._on_device(images)
         _, h, w, _ = images.shape
         r_h, r_w = self.preprocessor.matrices(w, h)
-        c = self.config
-        return detect_program(
-            self.model, self.priors, images, r_h, r_w,
-            min_confidence=c.min_confidence, max_iou=c.max_iou,
-            top_k=c.top_k, max_detections=c.max_detections,
-            pack_output=pack_output)
+        return detect_program(self.model, self.priors, images, r_h, r_w,
+                              pack_output=pack_output, **self._thresholds())
 
     def run_device_ycbcr(self, datas: list[bytes], *, scale: int = 1,
                          pack_output: bool = False):
@@ -192,19 +399,109 @@ class Detector:
         ``decode_ycbcr_batch``) -> detections as `run_device` gives them,
         on the device, one host->device copy. Returns without waiting for
         the device."""
-        if isinstance(packed, np.ndarray):
-            packed = torch.from_numpy(np.require(packed, requirements="WC"))
-        packed = packed.to(self.device)
         w, h = geom["width"], geom["height"]
         r_h, r_w = self.preprocessor.matrices(w, h)
-        c = self.config
         return detect_from_ycbcr(
-            self.model, self.priors, packed, r_h, r_w, width=w, height=h,
+            self.model, self.priors, self._on_device(packed), r_h, r_w,
+            width=w, height=h, y_pw=geom["y_pw"], y_ph=geom["y_ph"],
+            c_pw=geom["c_pw"], c_ph=geom["c_ph"],
+            sampling=tuple(geom["sampling"]), pack_output=pack_output,
+            **self._thresholds())
+
+    def run_device_coefficients(self, datas: list[bytes], *,
+                                pack_output: bool = False):
+        """JPEG bytes of one geometry -> detections: the host only
+        entropy-decodes (`read_coefficient_batch`), and
+        `run_device_coefficients_arrays` does the rest."""
+        y, cb, cr, quant, wh, sampling = read_coefficient_batch(datas)
+        return self.run_device_coefficients_arrays(
+            y, cb, cr, quant, wh, sampling=sampling, pack_output=pack_output)
+
+    def run_device_coefficients_arrays(self, y, cb, cr, quant,
+                                       wh: tuple[int, int], *,
+                                       sampling: tuple[int, int] = (2, 2),
+                                       pack_output: bool = False):
+        """Stacked coefficient blocks ([B, bh, bw, 64] int16 each), quant
+        tables [B, 3, 64], the frames' (width, height) and the stream's
+        luma sampling -> detections as `run_device` gives them (IDCT to
+        NMS on the device, `detect_from_coefficients`)."""
+        w, h = wh
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        return detect_from_coefficients(
+            self.model, self.priors, self._on_device(y), self._on_device(cb),
+            self._on_device(cr), self._on_device(quant), r_h, r_w, width=w,
+            height=h, sampling=tuple(sampling), pack_output=pack_output,
+            **self._thresholds())
+
+    def _encode_quant(self, quality: int) -> torch.Tensor:
+        """[2, 64] float32 encode quant tables at ``quality`` on the
+        detector's device (the shim's, cached per quality and device)."""
+        return _encode_quant(quality, self.device)
+
+    def run_device_ycbcr_annotated(self, packed, geom: dict, *,
+                                   quality: int = 95,
+                                   disp_dims: tuple | None = None):
+        """Packed planes and their geometry -> (packed quantized
+        coefficients [B, m] uint8, packed detections [B, D, 6]) on the
+        device (`detect_annotate_from_ycbcr`); the host finishes each frame
+        with `split_coefs` and `encode_coefs`. Planes that are not
+        multiples of 8 (scaled decodes) are edge-padded on the device."""
+        w, h = geom["width"], geom["height"]
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        return detect_annotate_from_ycbcr(
+            self.model, self.priors, self._on_device(packed), r_h, r_w,
+            self._encode_quant(quality), width=w, height=h,
             y_pw=geom["y_pw"], y_ph=geom["y_ph"], c_pw=geom["c_pw"],
             c_ph=geom["c_ph"], sampling=tuple(geom["sampling"]),
-            min_confidence=c.min_confidence, max_iou=c.max_iou,
-            top_k=c.top_k, max_detections=c.max_detections,
-            pack_output=pack_output)
+            disp_dims=tuple(disp_dims) if disp_dims else None,
+            **self._thresholds())
+
+    def run_device_coefficients_annotated(
+            self, y, cb, cr, quant, wh: tuple[int, int], *,
+            sampling: tuple[int, int] = (2, 2), k: int = 768,
+            disp_dims: tuple | None = None):
+        """The splice transcode from stacked coefficient blocks: packs them
+        (`pack_coefficient_batch`) and calls
+        `run_device_coefficients_annotated_packed`. Returns (blocks, meta,
+        packed detections); meta[i, 0] > k means frame i overflowed the
+        budget and needs a full-frame path."""
+        packed, quant, shapes = pack_coefficient_batch(y, cb, cr, quant)
+        return self.run_device_coefficients_annotated_packed(
+            packed, quant, wh=wh, shapes=shapes, sampling=sampling, k=k,
+            disp_dims=disp_dims)
+
+    def run_device_coefficients_annotated_packed(
+            self, packed12, quant, *, wh: tuple[int, int], shapes: tuple,
+            sampling: tuple[int, int] = (2, 2), k: int = 768,
+            disp_dims: tuple | None = None):
+        """The device half of the splice transcode, packing done:
+        ``shapes`` = ((y_bh, y_bw), (c_bh, c_bw)) (`detect_annotate_splice`).
+        The serving worker packs and uploads on its decode thread."""
+        (y_bh, y_bw), (c_bh, c_bw) = shapes
+        w, h = wh
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        return detect_annotate_splice(
+            self.model, self.priors, self._on_device(packed12),
+            self._on_device(quant), r_h, r_w, width=w, height=h, y_bw=y_bw,
+            y_bh=y_bh, c_bw=c_bw, c_bh=c_bh, sampling=tuple(sampling), k=k,
+            disp_dims=tuple(disp_dims) if disp_dims else None,
+            **self._thresholds())
+
+    def run_device_annotated(self, images, *, quality: int = 95,
+                             subsampling: str = "420",
+                             disp_dims: tuple | None = None):
+        """[B, H, W, 3] uint8 frames -> (packed quantized coefficients of
+        the annotated output JPEG at ``subsampling``, packed detections)
+        on the device (`detect_annotate`)."""
+        images = self._on_device(images)
+        _, h, w, _ = images.shape
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        return detect_annotate(
+            self.model, self.priors, images, r_h, r_w,
+            self._encode_quant(quality),
+            out_sampling=SUBSAMPLING_FACTORS[subsampling],
+            disp_dims=tuple(disp_dims) if disp_dims else None,
+            **self._thresholds())
 
     def warmup(self, batch_size: int, height: int, width: int) -> None:
         """Run one (B, H, W) batch so the kernel build, cuDNN's algorithm

@@ -18,13 +18,17 @@ would show only as "corrupt" frames, so `load` refuses a library that
 fails one encode + decode round trip.
 
 The batch decodes run on a ``std::thread`` pool of ``DEFAULT_THREADS``,
-and each ctypes call releases the GIL while it runs.
+and each ctypes call releases the GIL while it runs. The coefficient side
+(`NativeJpeg.read_coefficients`, `quant_tables`, `encode_coefs`) is the
+host half of the coefficients decode mode and of the device annotate tail:
+entropy decoding in, entropy coding out.
 """
 
 from __future__ import annotations
 
 import ctypes
 import ctypes.util
+import functools
 import glob
 import hashlib
 import logging
@@ -123,6 +127,14 @@ def _u8(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def _i16(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+
+
+def _u16(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16))
+
+
 class NativeJpeg:
     """The loaded shim. ``info`` says what it was built against, and the
     thread count of its batch decodes."""
@@ -154,6 +166,18 @@ class NativeJpeg:
             ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int32, u8p, ctypes.c_int64, i32p, i32p, ctypes.c_int32,
             ctypes.c_int32]
+        i16p = ctypes.POINTER(ctypes.c_int16)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.ic_jpeg_read_coefs.restype = ctypes.c_int
+        lib.ic_jpeg_read_coefs.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, i16p, i16p, i16p,
+            ctypes.c_int64, u16p, i32p]
+        lib.ic_jpeg_quant_tables.restype = ctypes.c_int
+        lib.ic_jpeg_quant_tables.argtypes = [ctypes.c_int32, u16p]
+        lib.ic_jpeg_write_coefs.restype = ctypes.c_int64
+        lib.ic_jpeg_write_coefs.argtypes = [
+            i16p, i16p, i16p, *([ctypes.c_int32] * 8), u16p, u8p,
+            ctypes.c_int64]
 
     @staticmethod
     def _check_claimed_dims(w: int, h: int, slot: int | None = None,
@@ -284,6 +308,73 @@ class NativeJpeg:
             raise ValueError(f"JPEG encode failed (rc={n})")
         return out[:n].tobytes()
 
+    def read_coefficients(self, data: bytes):
+        """Entropy decode only: the quantized DCT blocks and quant tables.
+
+        Returns ``(y [bh, bw, 64] int16, cb, cr, quant [3, 64] uint16,
+        (width, height), (h_samp, v_samp))``, blocks and tables in natural
+        order; ``ops/jpeg_device.py`` does the rest on the device.
+        ValueError on a corrupt JPEG or one that is not 3-component YCbCr at
+        4:2:0, 4:2:2 or 4:4:4."""
+        # room for the blocks of a frame up to 4K
+        max_each = (3840 // 8 + 2) * (2160 // 8 + 2) * 64
+        planes = [np.empty(max_each, np.int16) for _ in range(3)]
+        quant = np.empty(3 * 64, np.uint16)
+        dims = (ctypes.c_int32 * 8)()
+        rc = self._lib.ic_jpeg_read_coefs(
+            data, len(data), *(_i16(p) for p in planes), max_each,
+            _u16(quant), dims)
+        if rc == -3:
+            raise ValueError("unsupported JPEG layout for coefficient export "
+                             "(need 3-component YCbCr 4:2:0/4:2:2/4:4:4)")
+        if rc != 0:
+            raise ValueError(f"corrupt JPEG (coef rc={rc})")
+        w, h, ybw, ybh, cbw, cbh, hs, vs = dims
+        y, cb, cr = planes
+        return (y[:ybh * ybw * 64].reshape(ybh, ybw, 64).copy(),
+                cb[:cbh * cbw * 64].reshape(cbh, cbw, 64).copy(),
+                cr[:cbh * cbw * 64].reshape(cbh, cbw, 64).copy(),
+                quant.reshape(3, 64), (w, h), (hs, vs))
+
+    def quant_tables(self, quality: int) -> np.ndarray:
+        """[2, 64] uint16 quant tables (luma, chroma) in natural order:
+        libjpeg's baseline tables at this quality. The device encode tail
+        quantizes with them, and `encode_coefs` embeds them verbatim."""
+        out = np.empty(2 * 64, np.uint16)
+        rc = self._lib.ic_jpeg_quant_tables(quality, _u16(out))
+        if rc != 0:
+            raise ValueError(f"quant table export failed (rc={rc})")
+        return out.reshape(2, 64)
+
+    def encode_coefs(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                     wh: tuple[int, int], sampling: tuple[int, int],
+                     quant: np.ndarray) -> bytes:
+        """Entropy-code quantized DCT blocks into a baseline JPEG.
+
+        ``y``, ``cb``, ``cr``: [bh, bw, 64] int16 blocks in natural order
+        (iMCU-padded dims are accepted: the device tail emits them);
+        ``quant``: [2, 64] natural-order tables (`quant_tables`, or a
+        stream's own). This is the only host work of the device-annotated
+        output."""
+        w, h = wh
+        hs, vs = sampling
+        y, cb, cr = (np.ascontiguousarray(p, np.int16) for p in (y, cb, cr))
+        quant = np.ascontiguousarray(quant, np.uint16)
+        # dense high-frequency blocks plus byte stuffing can outgrow 3 B/px
+        cap = w * h * 3 + (1 << 16)
+        for _ in range(3):
+            out = np.empty(cap, np.uint8)
+            n = self._lib.ic_jpeg_write_coefs(
+                _i16(y), _i16(cb), _i16(cr), y.shape[1], y.shape[0],
+                cb.shape[1], cb.shape[0], w, h, hs, vs, _u16(quant), _u8(out),
+                cap)
+            if n != -2:
+                break
+            cap *= 4  # worst-case Huffman output outgrew the buffer
+        if n < 0:
+            raise ValueError(f"coefficient JPEG encode failed (rc={n})")
+        return out[:n].tobytes()
+
     def check_round_trip(self) -> None:
         """Encode and decode one small frame; RuntimeError if libjpeg
         refuses (a header/library version mismatch) or garbles it."""
@@ -316,3 +407,11 @@ def load() -> NativeJpeg:
             log.info("native JPEG shim: %s", native.info)
             _instance = native
         return _instance
+
+
+@functools.lru_cache(maxsize=16)
+def quant_tables_cached(quality: int) -> np.ndarray:
+    """`NativeJpeg.quant_tables` of the loaded shim, once per quality per
+    process: the tables the device encode tail and the host entropy coder
+    share. Callers must not write to the array."""
+    return load().quant_tables(quality)

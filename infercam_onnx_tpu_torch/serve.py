@@ -11,11 +11,13 @@ Usage::
         [--max-detections 64] [--max-batch 16] [--batch-window-ms 4] \
         [--queue-capacity 10] [--no-coalesce] \
         [--warmup 640x480,1280x720] [--warmup-sync] [--decode-scale 1] \
-        [--decode-mode pixels|ycbcr] [--assume-frame-dims 1280x720] \
+        [--decode-mode pixels|ycbcr|coefficients] [--annotate device|host] \
+        [--annotate-splice-blocks 768] [--assume-frame-dims 1280x720] \
         [--max-rss-mb N] [--profile-dir DIR]
 
-The flags are the JAX server's for the ported paths: pixels and ycbcr
-decode, host annotation, one device; the presets are the JAX server's.
+The flags are the JAX server's for the ported paths: every decode mode
+(pixels, ycbcr, coefficients) and both annotate modes (device by default,
+host), one device; the presets are the JAX server's.
 ``--device`` picks the device (``cuda`` unless asked otherwise); without
 ``--weights`` the weights are the detector's seeded random ones. Port 0
 in an address binds a free port.
@@ -111,15 +113,24 @@ def main(argv: list[str] | None = None) -> int:
                     choices=["pixels", "coefficients", "ycbcr"],
                     help="pixels: host RGB decode; ycbcr: host decode to "
                          "packed YCbCr planes, chroma upsample and colour "
-                         "on the device; coefficients is not ported and "
-                         "is an error")
+                         "on the device; coefficients: host entropy "
+                         "decode only, the IDCT on the device too")
     ap.add_argument("--decode-scale", type=int, default=1,
                     choices=[1, 2, 4, 8],
                     help="decode incoming JPEGs at 1/N resolution "
                          "(annotated output is then scaled too)")
-    ap.add_argument("--annotate", default="host", choices=["device", "host"],
-                    help="host: draw and JPEG-encode on the host; device "
-                         "is not ported and is an error")
+    ap.add_argument("--annotate", default="device",
+                    choices=["device", "host"],
+                    help="device: /face_stream overlays, FDCT and "
+                         "quantization on the device, the host only "
+                         "entropy-codes (in coefficients mode the splice "
+                         "transcode: only the blocks the overlay touched "
+                         "come back, the rest stays bit-exact); host: PIL "
+                         "draw and a full JPEG encode on the host")
+    ap.add_argument("--annotate-splice-blocks", type=int, default=768,
+                    help="splice transcode: per-frame budget of "
+                         "overlay-touched 8x8 blocks read back; a frame "
+                         "over it is annotated on the host")
     ap.add_argument("--assume-frame-dims", default=None,
                     help="scale drawn boxes by WxH instead of the decoded "
                          "frame's size (the reference hard-codes 1280x720)")
@@ -158,8 +169,9 @@ def main(argv: list[str] | None = None) -> int:
             coalesce_streams=not args.no_coalesce,
             decode_scale=args.decode_scale,
             decode_mode=args.decode_mode,
-            annotate_mode=args.annotate)
-    except NotImplementedError as e:
+            annotate_mode=args.annotate,
+            annotate_splice_blocks=args.annotate_splice_blocks)
+    except ValueError as e:
         where = f" (preset {args.preset})" if args.preset else ""
         ap.error(f"{e}{where}")
 

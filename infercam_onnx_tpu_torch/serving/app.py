@@ -5,8 +5,10 @@ process, on one device.
 
 The port serves from one device: there is no mesh and no lockstep
 dispatch (ROADMAP A.7), and no link probe (``serving/link.py``, ROADMAP
-A.5): its policy re-routes only the coefficients mode, the tiled upload
-and device annotation, none of which is ported.
+A.6): it re-routes the coefficients mode, device annotation and the tiled
+upload by thresholds measured on the TPU's host link, which the card's
+host-to-device rate has yet to re-derive; until then the worker serves
+exactly the configured modes.
 """
 
 from __future__ import annotations

@@ -1,52 +1,75 @@
 """Micro-batched inference worker on one device: the port of
-``infercam_onnx_tpu/serving/inferer.py`` for the pixels and ycbcr decode
-modes and host annotation.
+``infercam_onnx_tpu/serving/inferer.py`` for the pixels, ycbcr and
+coefficients decode modes and both annotate modes (one device: no tiling,
+no mesh and no link probe).
 
 The same shape as the JAX worker:
 
 - a bounded submit queue with drop-on-full backpressure;
 - a gather window that collects frames across streams, coalescing to the
   latest frame per stream unless ``coalesce_streams`` is off;
-- batches grouped by frame size and padded to the smallest bucket that
-  holds them;
+- batches grouped by frame size (packed planes and coefficients: by JPEG
+  geometry) and padded to the smallest bucket that holds them;
 - three stages on three single-thread executors, decode(k+2) ||
-  device(k+1) || draw + encode + publish(k), with NDJSON detections and
-  annotated MJPEG parts published to each stream's broadcasts;
-- in ``decode_mode="ycbcr"``, detection-only frames are decoded to packed
-  YCbCr planes in one batched call of the native shim (entropy decode and
-  IDCT on its thread pool, the GIL released), grouped by geometry, and
-  uploaded as one ``[bucket, n]`` uint8 batch; the device upsamples
-  chroma and converts colour before the same detect program
-  (``Detector.run_device_ycbcr_packed``, stage ``"device_ycbcr"``).
-  Frames with a ``/face_stream`` viewer need host pixels to draw on and
-  take the pixels path, as the JAX worker's do without device annotation;
-  a frame the packed decode refuses is pixel-decoded instead of dropped.
+  device(k+1) || encode + publish(k), with NDJSON detections and annotated
+  MJPEG parts published to each stream's broadcasts.
+
+Each gather becomes units, one device program each:
+
+- ``pixels``: host RGB frames grouped by (size, needs annotation), so
+  detection-only frames never pay an annotated program's readback. With
+  ``annotate_mode="device"`` the annotated ones run
+  `Detector.run_device_annotated` (stage ``"device"``): the overlay, the
+  FDCT and the quantization run on the device, and the publish stage only
+  entropy-codes (``native/jpeg.py`` `encode_coefs`, stage ``"encode"``).
+  With ``"host"`` it draws with PIL and encodes the whole JPEG.
+- ``ycbcr`` (``decode_mode="ycbcr"``): packed YCbCr planes, decoded in one
+  batched call of the native shim (the GIL released), stage
+  ``"device_ycbcr"``; a frame the packed decode refuses is pixel-decoded
+  instead of dropped. ``ycbcr_annot``: the frames with a ``/face_stream``
+  viewer, when annotating on the device, through
+  `run_device_ycbcr_annotated` (stage ``"device_annot"``). They are a
+  unit of their own, a second program in a gather that holds both.
+- ``coef`` (``decode_mode="coefficients"``): the host only entropy-decodes
+  (`read_coefficient_batch`, one ctypes call a frame), stage
+  ``"device_coef"``. ``coef_annot``: the viewers' frames through the
+  splice transcode (`run_device_coefficients_annotated_packed`, stage
+  ``"device_annot"``): only the blocks the overlay touched come back, and
+  `_finish_splice` writes them into the stream's own coefficients, so the
+  output is bit-exact to the input elsewhere. A frame whose overlay
+  touched more than ``annotate_splice_blocks`` blocks, or whose two
+  chroma quant tables differ, is annotated on the host from its JPEG
+  bytes, as the JAX worker does (the reference's semantics for that
+  frame, counted in ``splice_fallbacks``).
+
+With ``annotate_mode="host"`` a viewer's frame takes the pixels path in
+every decode mode.
 
 What changes is the transfer discipline, written for a CUDA device:
 
-- **upload** (decode thread): the padded batch (frames, or packed plane
-  rows) is written into a fresh pinned host tensor and copied to the
-  device with ``non_blocking=True`` on a dedicated copy stream, which then
-  records an event. PyTorch's
+- **upload** (decode thread): every input array of a unit (frames, packed
+  plane rows, coefficient blocks, quant tables) is written into a fresh
+  pinned host tensor and copied to the device with ``non_blocking=True``
+  on a dedicated copy stream, which then records one event. PyTorch's
   caching host allocator records the copy on the pinned block and hands
   the block out again only once that copy has completed, so the staging
   buffers of both directions are reused without a ring of our own. The
-  device tensor is ``record_stream``-ed onto the compute stream, so the
-  caching allocator does not hand its memory out again before the compute
-  stream is done with it.
+  device tensors are ``record_stream``-ed onto the compute stream, so the
+  caching allocator does not hand their memory out again before the
+  compute stream is done with them.
 - **compute** (device thread): the compute stream waits on that event,
-  then ``Detector.run_device(batch, pack_output=True)`` (or
-  ``run_device_ycbcr_packed``) runs under ``torch.cuda.stream(compute)``.
-  Every launch in it, the NMS kernel's included (``ops/nms.py`` launches
-  on ``torch.cuda.current_stream()``), lands on the compute stream.
-- **readback** (device thread): the packed ``[B, D, 6]`` output is copied
-  into a fresh pinned host tensor with ``non_blocking=True`` and an event
-  is recorded after it. The publish thread waits on that event before it
-  reads a single number: a non-blocking device-to-host copy read early
+  then the unit's program runs under ``torch.cuda.stream(compute)``. Every
+  launch in it, the NMS kernel's included (``ops/nms.py`` launches on
+  ``torch.cuda.current_stream()``), lands on the compute stream.
+- **readback** (device thread): every output of the program (packed
+  detections, coefficients, the splice's blocks and meta) is copied into
+  a fresh pinned host tensor with ``non_blocking=True`` and one event is
+  recorded after the last. The publish thread waits on that event before
+  it reads a single number: a non-blocking device-to-host copy read early
   gives whatever the buffer held, silently.
 
-On ``device="cpu"`` there are no streams and no pinned memory: the batch
-is a plain tensor and the output is read as soon as it is returned.
+On ``device="cpu"`` there are no streams and no pinned memory: the inputs
+are plain tensors and the outputs are read as soon as they are returned.
 """
 
 from __future__ import annotations
@@ -64,15 +87,29 @@ import torch
 
 from infercam_onnx_tpu_torch import codec
 from infercam_onnx_tpu_torch.config import EngineConfig, ServerConfig
-from infercam_onnx_tpu_torch.detector import Detector
+from infercam_onnx_tpu_torch.detector import Detector, pack_coefficient_batch
 from infercam_onnx_tpu_torch.draw import draw_detections
 from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
+from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
+    SUBSAMPLING_FACTORS, plane_geometry, splice_blocks, split_coefs)
 from infercam_onnx_tpu_torch.protocol import as_jpeg_stream_item
 from infercam_onnx_tpu_torch.serving.meter import METER
 from infercam_onnx_tpu_torch.serving.router import InferJob
 from infercam_onnx_tpu_torch.utils.profiling import STAGES
 
 log = logging.getLogger("infercam.inferer")
+
+# host dtype of each uploaded array -> its pinned staging dtype (the quant
+# tables' uint16 goes up as int32: torch's uint16 has few ops)
+_STAGING = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
+            np.dtype(np.uint16): torch.int32}
+
+# the stage each unit kind's program is timed under
+_DEVICE_STAGE = {"pixels": "device", "ycbcr": "device_ycbcr",
+                 "ycbcr_annot": "device_annot", "coef": "device_coef",
+                 "coef_annot": "device_annot"}
+
 
 class InferenceWorker:
     def __init__(
@@ -84,6 +121,11 @@ class InferenceWorker:
         self._detector = detector
         self._cfg = engine_config
         self._server_cfg = server_config
+        # device annotation needs the shim's entropy coder: build it now,
+        # and raise here rather than serve the host draw path instead
+        self._annotate_device = engine_config.annotate_mode == "device"
+        if self._annotate_device or engine_config.decode_mode != "pixels":
+            native_jpeg.load()
         self._queue: asyncio.Queue[InferJob] = asyncio.Queue(
             maxsize=engine_config.queue_capacity)
         self._buckets = sorted(engine_config.batch_buckets)
@@ -97,7 +139,7 @@ class InferenceWorker:
             self._compute_stream = torch.cuda.Stream(self.device)
         # Each stage runs on its own thread, bound to the worker's device.
         # The device thread is the only one that runs float32 convs and
-        # matmuls (detect_program, warm-up), so the process-wide precision
+        # matmuls (the programs, warm-up), so the process-wide precision
         # that config.full_float32 sets while it runs reaches no other
         # work of this worker.
         self._decode_exec, self._device_exec, self._publish_exec = (
@@ -107,6 +149,8 @@ class InferenceWorker:
         self._loop: asyncio.AbstractEventLoop | None = None
         # device warm-up in progress (surfaced as /stats "warming")
         self.warming = False
+        # splice frames annotated on the host instead (publish thread)
+        self.splice_fallbacks = 0
 
     def _bind_device(self) -> None:
         if self.device.type == "cuda":
@@ -134,8 +178,8 @@ class InferenceWorker:
         return self._buckets[min(i, len(self._buckets) - 1)]
 
     async def run(self) -> None:
-        """decode(k+2) || device(k+1) || draw+encode+publish(k), each
-        stage on its own single-thread executor."""
+        """decode(k+2) || device(k+1) || encode+publish(k), each stage on
+        its own single-thread executor."""
         self._loop = asyncio.get_running_loop()
         max_bucket = self._buckets[-1]
         window = self._cfg.batch_window_ms / 1e3
@@ -201,14 +245,19 @@ class InferenceWorker:
 
     def _decode(self, jobs: list[InferJob]) -> list[dict]:
         """Decode the jobs' JPEGs, group them into padded batches and
-        start each batch's upload. In ycbcr mode detection-only jobs take
-        the packed-plane decode, grouped by JPEG geometry; every other job
-        is pixel-decoded and grouped by frame size. A frame nothing can
-        decode is dropped and counted, not fatal."""
+        start each batch's upload (the module docstring lists the unit
+        kinds). A frame nothing can decode is dropped and counted, not
+        fatal."""
         scale = self._cfg.decode_scale
-        ycbcr = self._cfg.decode_mode == "ycbcr"
-        pixel_jobs = [j for j in jobs if j.reply is not None or not ycbcr]
-        ycbcr_jobs = [j for j in jobs if j.reply is None and ycbcr]
+        mode = self._cfg.decode_mode
+        # in ycbcr and coefficients modes a viewer's frame rides the
+        # device annotate tail when annotating on the device
+        device_tail = mode != "pixels"
+        annot = [j for j in jobs if j.reply is not None
+                 and self._annotate_device and device_tail]
+        pixel_jobs = [j for j in jobs if j not in annot
+                      and (j.reply is not None or not device_tail)]
+        plain = [j for j in jobs if j.reply is None and device_tail]
         frames: list[tuple[InferJob, np.ndarray]] = []
 
         def pixel_decode(job: InferJob, why) -> None:
@@ -219,6 +268,7 @@ class InferenceWorker:
                             job.key, why or e)
                 METER.tick_dropped()
 
+        groups: list[tuple[str, list, dict | None]] = []
         with STAGES.stage("decode"):
             if pixel_jobs:
                 try:
@@ -228,18 +278,27 @@ class InferenceWorker:
                 except ValueError:
                     for job in pixel_jobs:
                         pixel_decode(job, None)
-            groups = (self._decode_ycbcr(ycbcr_jobs, pixel_decode)
-                      if ycbcr_jobs else [])
+            decode = (self._decode_ycbcr if mode == "ycbcr"
+                      else self._decode_coefficients)
+            for kind, chosen in (("", plain), ("_annot", annot)):
+                if chosen:
+                    groups.extend((("coef" if mode == "coefficients"
+                                    else "ycbcr") + kind, members, geom)
+                                  for members, geom in
+                                  decode(chosen, pixel_decode))
 
         units: list[dict] = []
         with STAGES.stage("upload"):
-            by_shape: dict[tuple[int, int], list] = {}
+            by_shape: dict[tuple, list] = {}
             for job, frame in frames:
-                by_shape.setdefault(frame.shape[:2], []).append((job, frame))
-            units.extend(self._unit(members) for members in
-                         by_shape.values())
-            units.extend(self._unit(members, geom)
-                         for members, geom in groups)
+                needs_annot = self._annotate_device and job.reply is not None
+                by_shape.setdefault((frame.shape[:2], needs_annot),
+                                    []).append((job, frame))
+            for (_, needs_annot), members in by_shape.items():
+                units.append(self._unit("pixels", members,
+                                        annotate=needs_annot))
+            units.extend(self._unit(kind, members, geom)
+                         for kind, members, geom in groups)
         return units
 
     def _decode_ycbcr(self, jobs: list[InferJob], pixel_decode):
@@ -269,14 +328,28 @@ class InferenceWorker:
                 (job, packed[0]))
         return list(by_geom.values())
 
-    def _unit(self, members: list, geom: dict | None = None) -> dict:
-        """One padded batch of ``members`` (job, frame or packed row),
-        uploading: the device stage's work item. ``geom`` is the packed
-        rows' geometry, None for pixel frames."""
-        if geom is None:
-            h, w = members[0][1].shape[:2]
-        else:
-            w, h = geom["width"], geom["height"]
+    def _decode_coefficients(self, jobs: list[InferJob], pixel_decode):
+        """[(members, None)]: the jobs' entropy-decoded coefficients
+        grouped by JPEG geometry, members as (job, `read_coefficient_batch`
+        of that one frame). A frame the coefficient export refuses goes to
+        ``pixel_decode``."""
+        by_geom: dict[tuple, list] = {}
+        for job in jobs:
+            try:
+                planes = read_coefficient_batch([job.data])
+            except ValueError as e:
+                pixel_decode(job, e)
+                continue
+            key = (planes[4], planes[5], planes[0].shape, planes[1].shape)
+            by_geom.setdefault(key, []).append((job, planes))
+        return [(members, None) for members in by_geom.values()]
+
+    def _unit(self, kind: str, members: list, geom: dict | None = None, *,
+              annotate: bool = False) -> dict:
+        """One padded batch of ``members`` (job, frame | packed row |
+        coefficient planes), uploading: the device stage's work item.
+        ``batch`` is the uploaded tensor, for coefficient kinds the tuple
+        of them; ``geom`` the packed rows' geometry (ycbcr kinds)."""
         bucket = self._bucket_size(len(members))
         extra = len(members) - bucket
         if extra > 0:
@@ -286,72 +359,138 @@ class InferenceWorker:
                         "bucket %d", extra, bucket)
             METER.tick_dropped(extra)
             members = members[:bucket]
-        batch, ready = self._upload([r for _, r in members], bucket)
-        if geom is not None:  # nothing to draw on: the rows are planes
-            members = [(job, None) for job, _ in members]
-        return {"members": members, "n": len(members), "batch": batch,
-                "ready": ready, "geom": geom, "w": w, "h": h}
+        unit = {"kind": kind, "members": members, "n": len(members),
+                "geom": geom, "annotate": annotate}
+        rows = [r for _, r in members]
+        if kind == "pixels":
+            unit["h"], unit["w"] = rows[0].shape[:2]
+            columns = [(rows, 0)]
+        elif kind.startswith("ycbcr"):
+            unit["w"], unit["h"] = geom["width"], geom["height"]
+            columns = [(rows, 0)]
+        else:  # coefficients: (y, cb, cr, quant, wh, sampling) each
+            (unit["w"], unit["h"]), unit["sampling"] = rows[0][4:6]
+            y, cb, cr, quant = ([r[i][0] for r in rows] for i in range(4))
+            if kind == "coef":
+                columns = [(y, 0), (cb, 0), (cr, 0), (quant, 0)]
+            else:
+                # pack the zero-padded batch as the JAX worker does; quant
+                # pads with ones, so padded rows stay finite through the
+                # dequantize/requantize round trip
+                pad = bucket - len(rows)
+                y, cb, cr, quant = (np.concatenate([np.stack(p), np.full(
+                    (pad, *p[0].shape), fill, p[0].dtype)]) for p, fill in (
+                        (y, 0), (cb, 0), (cr, 0), (quant, 1)))
+                packed12, quant, unit["shapes"] = pack_coefficient_batch(
+                    y, cb, cr, quant)
+                columns = [(list(packed12), 0), (list(quant), 1)]
+        if kind.startswith("ycbcr") or kind.startswith("coef"):
+            # packed rows and coefficients carry no frame to draw on
+            unit["members"] = [(job, None if kind != "coef_annot" else r)
+                               for job, r in members]
+        batch, unit["ready"] = self._upload(columns, bucket)
+        unit["batch"] = batch[0] if len(batch) == 1 else tuple(batch)
+        return unit
 
-    def _upload(self, rows: list[np.ndarray], bucket: int
-                ) -> tuple[torch.Tensor, torch.cuda.Event | None]:
-        """The [bucket, *row shape] uint8 batch of ``rows`` (frames or
-        packed plane rows), zero-padded, on the device, and the event
-        after which it is there (None on the CPU)."""
-        shape = (bucket, *rows[0].shape)
+    def _upload(self, columns: list[tuple[list[np.ndarray], int]],
+                bucket: int) -> tuple[list[torch.Tensor],
+                                      torch.cuda.Event | None]:
+        """Each (rows, fill) column as a [bucket, *row shape] tensor on the
+        device, its rows after ``len(rows)`` set to ``fill``, and the one
+        event after which all of them are there (None on the CPU)."""
+        hosts = []
+        for rows, fill in columns:
+            host = torch.empty((bucket, *rows[0].shape),
+                               dtype=_STAGING[rows[0].dtype],
+                               pin_memory=self._copy_stream is not None)
+            view = host.numpy()
+            view[:len(rows)] = rows
+            view[len(rows):] = fill
+            hosts.append(host)
         if self._copy_stream is None:
-            batch = np.zeros(shape, np.uint8)
-            batch[:len(rows)] = rows
-            return torch.from_numpy(batch), None
-        host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
-        view = host.numpy()
-        view[:len(rows)] = rows
-        view[len(rows):] = 0
+            return hosts, None
         with torch.cuda.stream(self._copy_stream):
-            batch = host.to(self.device, non_blocking=True)
+            batches = [h.to(self.device, non_blocking=True) for h in hosts]
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
-        batch.record_stream(self._compute_stream)
-        return batch, ready
+        for batch in batches:
+            batch.record_stream(self._compute_stream)
+        return batches, ready
 
     # -- stage 2: dispatch + readback (device thread) ----------------------
 
     def _device_stage(self, units: list[dict]) -> list[dict]:
-        """Dispatch each uploaded batch and start its readback; returns
-        the publish stage's entries."""
+        """Dispatch each uploaded unit and start its readback; returns the
+        publish stage's entries."""
         results = []
         for unit in units:
             t0 = time.monotonic()
-            with STAGES.stage("device" if unit["geom"] is None
-                              else "device_ycbcr"):
-                packed, done = self._run_detection(unit)
+            with STAGES.stage(_DEVICE_STAGE[unit["kind"]]):
+                outs, done = self._run_unit(unit)
             METER.tick_batch(unit["n"], time.monotonic() - t0)
-            results.append({"members": unit["members"], "packed": packed,
-                            "done": done, "w": unit["w"], "h": unit["h"]})
+            entry = {"members": unit["members"], "done": done,
+                     "w": unit["w"], "h": unit["h"], "coefs": None,
+                     "geom": None, "splice": None, "packed": outs[-1]}
+            if unit["kind"] == "coef_annot":
+                entry["splice"] = {"blocks": outs[0], "meta": outs[1],
+                                   "k": self._cfg.annotate_splice_blocks}
+            elif unit["kind"] == "ycbcr_annot" or unit["annotate"]:
+                entry["coefs"] = outs[0]
+                entry["geom"] = unit["geom"] or plane_geometry(
+                    unit["w"], unit["h"], SUBSAMPLING_FACTORS[
+                        self._server_cfg.jpeg_subsampling])
+            results.append(entry)
         return results
 
-    def _detect(self, unit: dict) -> torch.Tensor:
-        if unit["geom"] is None:
-            return self._detector.run_device(unit["batch"], pack_output=True)
-        return self._detector.run_device_ycbcr_packed(
-            unit["batch"], unit["geom"], pack_output=True)
+    def _program(self, unit: dict):
+        """The unit's device program: its outputs, packed detections
+        last."""
+        det, cfg, srv = self._detector, self._cfg, self._server_cfg
+        kind, batch = unit["kind"], unit["batch"]
+        dims = srv.assume_frame_dims
+        if kind == "pixels" and unit["annotate"]:
+            return det.run_device_annotated(
+                batch, quality=srv.jpeg_quality,
+                subsampling=srv.jpeg_subsampling, disp_dims=dims)
+        if kind == "pixels":
+            return det.run_device(batch, pack_output=True)
+        if kind == "ycbcr":
+            return det.run_device_ycbcr_packed(batch, unit["geom"],
+                                               pack_output=True)
+        if kind == "ycbcr_annot":
+            return det.run_device_ycbcr_annotated(
+                batch, unit["geom"], quality=srv.jpeg_quality,
+                disp_dims=dims)
+        if kind == "coef":
+            return det.run_device_coefficients_arrays(
+                *batch, (unit["w"], unit["h"]), sampling=unit["sampling"],
+                pack_output=True)
+        return det.run_device_coefficients_annotated_packed(
+            *batch, wh=(unit["w"], unit["h"]), shapes=unit["shapes"],
+            sampling=unit["sampling"], k=cfg.annotate_splice_blocks,
+            disp_dims=dims)
 
-    def _run_detection(self, unit: dict):
-        """The packed [B, D, 6] detections of one padded batch as a host
-        tensor, and the event after which they may be read (None on the
-        CPU, where they are ready on return)."""
+    def _run_unit(self, unit: dict):
+        """The unit's outputs (packed detections last) as host tensors,
+        and the event after which they may be read (None on the CPU, where
+        they are ready on return)."""
         if self._compute_stream is None:
-            return self._detect(unit), None
+            outs = self._program(unit)
+            return (outs if isinstance(outs, tuple) else (outs,)), None
         with torch.cuda.stream(self._compute_stream):
             self._compute_stream.wait_event(unit["ready"])
-            packed = self._detect(unit)
-            host = torch.empty(packed.shape, dtype=packed.dtype,
-                               pin_memory=True)
-            host.copy_(packed, non_blocking=True)
+            outs = self._program(unit)
+            hosts = []
+            for out in (outs if isinstance(outs, tuple) else (outs,)):
+                host = torch.empty(out.shape, dtype=out.dtype,
+                                   pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                hosts.append(host)
             done = torch.cuda.Event()
             done.record(self._compute_stream)
-        return host, done
+        return tuple(hosts), done
 
-    # -- stage 3: draw + encode + publish (publish thread) ------------------
+    # -- stage 3: encode + publish (publish thread) ---------------------------
 
     def _publish(self, chan, item: bytes) -> None:
         self._loop.call_soon_threadsafe(chan.publish, item)
@@ -376,7 +515,6 @@ class InferenceWorker:
         }) + "\n").encode()
 
     def _publish_results(self, results: list[dict]) -> None:
-        dims = self._server_cfg.assume_frame_dims
         for entry in results:
             if entry["done"] is not None:
                 entry["done"].synchronize()  # the readback has landed
@@ -387,39 +525,114 @@ class InferenceWorker:
                     self._publish(job.det_reply,
                                   self._detections_json(packed[i], w, h))
                 if job.reply is not None:
-                    count = int(packed[i, :, 5].sum())
-                    dets = [(packed[i, d, :4], float(packed[i, d, 4]))
-                            for d in range(count)]
-                    with STAGES.stage("draw"):
-                        annotated = draw_detections(frame, dets, dims)
-                    with STAGES.stage("encode"):
-                        jpeg = codec.encode_rgb(
-                            annotated, self._server_cfg.jpeg_quality,
-                            self._server_cfg.jpeg_subsampling)
-                    self._publish(job.reply, as_jpeg_stream_item(jpeg))
+                    jpeg = self._annotated_jpeg(entry, i, frame)
+                    if jpeg is not None:
+                        self._publish(job.reply, as_jpeg_stream_item(jpeg))
                 self._tick_e2e(job)
             METER.tick_inferred_unique(len(entry["members"]))
 
+    def _annotated_jpeg(self, entry: dict, i: int, frame) -> bytes | None:
+        """Row ``i``'s annotated output JPEG: the splice's, the device
+        tail's coefficients entropy-coded, or the host's draw + encode of
+        the frame; None when the frame is dropped."""
+        packed_row = entry["packed"].numpy()[i]
+        job = entry["members"][i][0]
+        if entry["splice"] is not None:
+            splice = entry["splice"]
+            return self._finish_splice(job, frame, packed_row,
+                                       splice["meta"].numpy()[i],
+                                       splice["blocks"].numpy()[i],
+                                       splice["k"])
+        if entry["coefs"] is not None:
+            geom = entry["geom"]
+            with STAGES.stage("encode"):
+                yq, cbq, crq = split_coefs(entry["coefs"].numpy()[i], geom)
+                return native_jpeg.load().encode_coefs(
+                    yq, cbq, crq, (geom["width"], geom["height"]),
+                    geom["sampling"], native_jpeg.quant_tables_cached(
+                        self._server_cfg.jpeg_quality))
+        return self._host_annotate(frame, packed_row)
+
+    def _host_annotate(self, frame: np.ndarray,
+                       packed_row: np.ndarray) -> bytes:
+        """Draw the detections on the frame with PIL and encode it."""
+        count = int(packed_row[:, 5].sum())
+        dets = [(packed_row[d, :4], float(packed_row[d, 4]))
+                for d in range(count)]
+        with STAGES.stage("draw"):
+            annotated = draw_detections(frame, dets,
+                                        self._server_cfg.assume_frame_dims)
+        with STAGES.stage("encode"):
+            return codec.encode_rgb(annotated, self._server_cfg.jpeg_quality,
+                                    self._server_cfg.jpeg_subsampling)
+
+    def _finish_splice(self, job: InferJob, planes, packed_row: np.ndarray,
+                       meta: np.ndarray, blocks: np.ndarray,
+                       k: int) -> bytes | None:
+        """The host tail of the splice transcode for one frame: the
+        device's touched blocks written into the frame's own
+        entropy-decoded coefficients, then entropy-coded with the frame's
+        own tables. A frame over the block budget, or whose chroma quant
+        tables differ (the coder takes one chroma table), is annotated on
+        the host from its JPEG bytes instead; None if those do not
+        decode."""
+        y_o, cb_o, cr_o, quant, wh, sampling = planes
+        n_touched = int(meta[0])
+        if n_touched <= k and np.array_equal(quant[0, 1], quant[0, 2]):
+            with STAGES.stage("encode"):
+                ys, cbs, crs = splice_blocks(y_o[0], cb_o[0], cr_o[0], meta,
+                                             blocks)
+                return native_jpeg.load().encode_coefs(ys, cbs, crs, wh,
+                                                       sampling, quant[0, :2])
+        self.splice_fallbacks += 1
+        log.debug("splice fallback on stream %x (%d blocks > %d)", job.key,
+                  n_touched, k)
+        try:
+            frame = codec.decode_rgb(job.data)
+        except ValueError:
+            return None
+        return self._host_annotate(frame, packed_row)
+
     def warmup(self, resolutions: list[tuple[int, int]] | None = None):
-        """Run the detect program once for every bucket at each (h, w)
-        resolution as senders send it (decode_scale applied), so kernel
-        builds, cuDNN's algorithm choices and the resize matrices are done
-        before traffic. In ycbcr mode a 4:2:0 probe JPEG of each
-        resolution also runs every bucket through the packed-plane path
-        (the shim's build included). `serving.app` runs it on the device
+        """Run every program the configuration serves once for every
+        bucket at each (h, w) resolution as senders send it (decode_scale
+        applied), so kernel builds, cuDNN's algorithm choices and the
+        resize matrices are done before traffic: detection, the annotated
+        program of the decode mode when annotating on the device, and in
+        the ycbcr and coefficients modes their programs on a 4:2:0 probe
+        JPEG of each resolution. `serving.app` runs it on the device
         thread."""
-        s = self._cfg.decode_scale
+        det, srv = self._detector, self._server_cfg
+        s, mode = self._cfg.decode_scale, self._cfg.decode_mode
+        dims = srv.assume_frame_dims
         for (h, w) in resolutions or [(480, 640)]:
-            for b in self._buckets:
-                self._detector.warmup(b, h // s, w // s)
-            if self._cfg.decode_mode != "ycbcr":
-                continue
             probe = codec.encode_rgb(np.zeros((h, w, 3), np.uint8), 90,
                                      "420")
             for b in self._buckets:
-                packed, geom = native_jpeg.load().decode_ycbcr_batch(
-                    [probe] * b, scale=s)
-                self._detector.run_device_ycbcr_packed(packed, geom,
-                                                       pack_output=True)
+                det.warmup(b, h // s, w // s)
+                if self._annotate_device and mode == "pixels":
+                    det.run_device_annotated(
+                        np.zeros((b, h // s, w // s, 3), np.uint8),
+                        quality=srv.jpeg_quality,
+                        subsampling=srv.jpeg_subsampling, disp_dims=dims)
+                if mode == "ycbcr":
+                    packed, geom = native_jpeg.load().decode_ycbcr_batch(
+                        [probe] * b, scale=s)
+                    det.run_device_ycbcr_packed(packed, geom,
+                                                pack_output=True)
+                    if self._annotate_device:
+                        det.run_device_ycbcr_annotated(
+                            packed, geom, quality=srv.jpeg_quality,
+                            disp_dims=dims)
+                if mode == "coefficients":
+                    y, cb, cr, q, wh, samp = read_coefficient_batch(
+                        [probe] * b)
+                    det.run_device_coefficients_arrays(
+                        y, cb, cr, q, wh, sampling=samp, pack_output=True)
+                    if self._annotate_device:
+                        det.run_device_coefficients_annotated(
+                            y, cb, cr, q, wh, sampling=samp,
+                            k=self._cfg.annotate_splice_blocks,
+                            disp_dims=dims)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -1,6 +1,6 @@
 """The hand CUDA kernels against their plain versions, the packed-YCbCr
-decode tail against the CPU, and the serving worker's stream-ordered
-transfers, on the card.
+decode tail, the annotated and coefficient programs against the CPU, and
+the serving worker's stream-ordered transfers, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -430,3 +430,74 @@ def test_nms_kernel_runs_on_the_ycbcr_workers_compute_stream(cuda,
     assert len(streams) == len(units) >= 2
     assert all(u["geom"] is not None for u, _ in units)
     assert all(s == worker._compute_stream for s in streams)
+
+
+# -- the device annotate tail and the coefficients mode ------------------------
+
+
+def _program_outputs(det, program: str, jpegs: list[bytes]):
+    """The outputs of one annotated or coefficient program of ``det`` on
+    ``jpegs``, packed detections last, each a CPU tensor."""
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
+
+    if program == "detect_annotate":
+        outs = det.run_device_annotated(np.stack(codec.decode_batch(jpegs)))
+    elif program == "detect_annotate_from_ycbcr":
+        outs = det.run_device_ycbcr_annotated(
+            *native_jpeg.load().decode_ycbcr_batch(jpegs))
+    else:
+        y, cb, cr, quant, wh, samp = read_coefficient_batch(jpegs)
+        if program == "detect_from_coefficients":
+            outs = (det.run_device_coefficients_arrays(
+                y, cb, cr, quant, wh, sampling=samp, pack_output=True),)
+        else:
+            outs = det.run_device_coefficients_annotated(
+                y, cb, cr, quant, wh, sampling=samp, k=768)
+    return [t.cpu() for t in outs]
+
+
+@pytest.mark.parametrize("program", [
+    "detect_annotate", "detect_annotate_from_ycbcr",
+    "detect_from_coefficients", "detect_annotate_splice"])
+def test_annotate_and_coefficient_programs_on_cuda_match_cpu(cuda, program):
+    """float32, frozen weights, the synthetic pictures: the card's packed
+    detections equal the CPU's in counts, boxes within 1e-5 and
+    confidences within 5e-5; its quantized coefficients (or the splice's
+    blocks) equal the CPU's in >= 99.9% of entries and never differ by
+    more than 1, the splice's block choice is the CPU's, TF32 switched on
+    for the whole process moves none of it, and the program launches the
+    NMS kernel once."""
+    from infercam_onnx_tpu_torch.ops.jpeg_encode_device import unpack12
+
+    jpegs = _synthetic_jpegs()
+    weights = str(REPO / "resources" / "weights" / "ultraface-twin.npz")
+    config = DetectorConfig(compute_dtype="float32")
+    det = Detector(config, weights=weights, device=cuda)
+    before = nms.kernel.launches
+    got = _program_outputs(det, program, jpegs)
+    assert nms.kernel.launches == before + 1
+    want = _program_outputs(Detector(config, weights=weights, device="cpu"),
+                            program, jpegs)
+    assert torch.equal(got[-1][..., 5], want[-1][..., 5])
+    assert int(want[-1][..., 5].sum()) >= 10
+    torch.testing.assert_close(got[-1][..., :4], want[-1][..., :4], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(got[-1][..., 4], want[-1][..., 4], rtol=0,
+                               atol=5e-5)
+    if program == "detect_annotate_splice":
+        assert torch.equal(got[1], want[1])
+    if len(got) > 1:
+        g, w = (np.stack([unpack12(r) for r in t[0].numpy()]).astype(np.int32)
+                for t in (got, want))
+        assert (g == w).mean() >= 0.999
+        assert np.abs(g - w).max() <= 1
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = "tf32"
+    try:
+        tf32 = _program_outputs(det, program, jpegs)
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
+    assert all(torch.equal(a, b) for a, b in zip(tf32, got))

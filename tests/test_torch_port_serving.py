@@ -214,27 +214,32 @@ def test_draw_dims_match_jax():
 
 # -- configuration ---------------------------------------------------------
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"decode_mode": "coefficients"}, "A.5"),
-    ({"annotate_mode": "device"}, "A.4"),
-])
-def test_unported_modes_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        EngineConfig(**kwargs)
+@pytest.mark.parametrize("annotate_mode", ["device", "host"])
+@pytest.mark.parametrize("decode_mode", ["pixels", "ycbcr", "coefficients"])
+def test_engine_accepts_every_jax_mode(decode_mode, annotate_mode):
+    """Every decode and annotate mode of the JAX package is accepted, with
+    the JAX package's splice block budget."""
+    from infercam_onnx_tpu.config import EngineConfig as JEngineConfig
+
+    cfg = EngineConfig(decode_mode=decode_mode, annotate_mode=annotate_mode)
+    want = JEngineConfig(decode_mode=decode_mode, annotate_mode=annotate_mode)
+    for field in ("decode_mode", "annotate_mode", "annotate_splice_blocks"):
+        assert getattr(cfg, field) == getattr(want, field), field
 
 
 def test_engine_defaults_and_bad_values():
     cfg = EngineConfig()
-    assert (cfg.decode_mode, cfg.annotate_mode) == ("pixels", "host")
+    assert (cfg.decode_mode, cfg.annotate_mode) == ("pixels", "device")
+    assert cfg.annotate_splice_blocks == 768
     assert tuple(cfg.batch_buckets) == (1, 2, 4, 8, 16)
     for kwargs in ({"decode_mode": "rgb"}, {"annotate_mode": "gpu"},
-                   {"decode_scale": 3}, {"batch_buckets": ()}):
+                   {"decode_scale": 3}, {"batch_buckets": ()},
+                   {"annotate_splice_blocks": 0}):
         with pytest.raises(ValueError):
             EngineConfig(**kwargs)
 
 
 @pytest.mark.parametrize("argv", [
-    ["--decode-mode", "coefficients"], ["--annotate", "device"],
     ["--onnx", "m.onnx"], ["--data-parallel", "on"],
     ["--tile-min-pixels", "1000000"],
 ])
@@ -250,12 +255,14 @@ def test_serve_cli_refuses_unported_paths(argv, capsys):
     ["--preset", "latency"], ["--decode-mode", "ycbcr"],
     ["--preset", "throughput", "--decode-scale", "1", "--max-batch", "8",
      "--warmup-sync"],
+    ["--decode-mode", "coefficients"], ["--annotate", "device"],
+    ["--annotate", "host"],
+    ["--decode-mode", "coefficients", "--annotate-splice-blocks", "64"],
 ])
 def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
-    """The ycbcr decode mode and the three tuned presets run: each argv
-    gives the server the EngineConfig fields, warm-up resolutions and
-    warm-up mode the JAX CLI gives its own (its annotate mode aside: the
-    port annotates on the host, the JAX default is the device)."""
+    """Every decode and annotate mode and the three tuned presets run:
+    each argv gives the server the EngineConfig fields, warm-up
+    resolutions and warm-up mode the JAX CLI gives its own."""
     from infercam_onnx_tpu.serving import app as japp
     from infercam_onnx_tpu.utils import cache as jcache
     from infercam_onnx_tpu_torch.serving import app as tapp
@@ -277,10 +284,11 @@ def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
         assert got[key] == want[key]
     port_cfg, jax_cfg = got["engine_config"], want["engine_config"]
     for field in ("batch_buckets", "queue_capacity", "batch_window_ms",
-                  "coalesce_streams", "decode_scale", "decode_mode"):
+                  "coalesce_streams", "decode_scale", "decode_mode",
+                  "annotate_mode", "annotate_splice_blocks"):
         assert getattr(port_cfg, field) == getattr(jax_cfg, field), field
-    assert port_cfg.decode_mode == "ycbcr"
-    assert port_cfg.annotate_mode == "host"
+    assert port_cfg.annotate_mode == ("host" if "host" in argv
+                                      else "device")
 
 
 # -- live serving on the CPU ---------------------------------------------
@@ -397,7 +405,7 @@ def test_served_detections_and_annotations_match_jax(detector,
     datas, frames, want = jax_reference
 
     async def run():
-        async with _serving(detector) as server:
+        async with _serving(detector, annotate_mode="host") as server:
             port = server.http_port
             dets = await _Viewer.open(port, "/detections?name=cam")
             faces = await _Viewer.open(port, "/face_stream?name=cam")
@@ -638,11 +646,13 @@ def test_ycbcr_server_publishes_run_device_ycbcr_packed(detector):
 
 
 def test_ycbcr_server_face_stream_takes_the_pixels_path(detector):
-    """In ycbcr mode a stream with a /face_stream viewer still gets
-    annotated 640x480 parts: its frames take the pixels path, while a
-    detection-only stream beside it takes the packed planes."""
+    """In ycbcr mode with host annotation a stream with a /face_stream
+    viewer still gets annotated 640x480 parts: its frames take the pixels
+    path, while a detection-only stream beside it takes the packed
+    planes."""
     async def run():
         async with _serving(detector, decode_mode="ycbcr",
+                            annotate_mode="host",
                             queue_capacity=8) as server:
             units = _tap_units(server)
             port = server.http_port
