@@ -13,9 +13,11 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    three inputs: (a) random clustered boxes, B=16, K=256, 80% valid; (b)
    the candidates the main path feeds it, captured from batched_nms on
    the frozen weights (RFB-320, top_k 256, 16 synthetic frames); (c)
-   B=16, K=1024 clustered boxes, the size of a cross-tile merge. Each
-   with its own bound. A second build of the kernel with its time stamps
-   turned on splits its time into phase 1 and the scan;
+   B=16, K=1024 clustered boxes; (d) the candidates the tiled path feeds
+   it, captured the same way from TiledDetector.run_device (16 1920x1080
+   frames, 2x2 grid: the 4 x 4,420 merged candidates cut to top_k 256).
+   Each with its own bound. A second build of the kernel with its time
+   stamps turned on splits its time into phase 1 and the scan;
 3. the goldens gate: the float32 detector (TF32 off process-wide) on the
    committed frozen weights over resources/test_pics_synthetic must pass
    the >=95% box/confidence parity gate of tests/fixtures/goldens_twin_
@@ -58,6 +60,29 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    where a frame overflows it, float32 card against CPU (the splice's meta equal, its
    coefficients as in 4c), one NMS launch a call, ms per batch in turns,
    read_coefficient_batch's and the 12-bit packing's host ms;
+4e. tiled_path: TiledDetector (2x2 grid, overlap 0.2, RFB-320 bf16,
+   frozen weights) on 16 1920x1080 quality-90 4:2:0 JPEGs made from the
+   synthetic pictures (plain and mirrored, PIL bilinear upscale), decoded
+   at scales 1 (1920x1080) and 2 (960x540), through run_device,
+   run_device_ycbcr_packed and run_device_ycbcr_rows (one device tensor a
+   frame): one NMS launch a call; pixels and packed outputs bit-identical
+   to the same programs with the plain scan; rows bit-identical to
+   packed; a 1x1 grid against the untiled program (counts equal, boxes
+   within 1e-5); the float32 ycbcr program against the float32 pixels
+   one at scale 1 by the JAX package's tiled bar, which it holds at
+   float32 and full decode (counts within 2 a frame, the top three
+   quarters of the boxes within 5e-3), the bf16 programs' agreement and
+   box parity at both scales shown beside it (bf16 rounding flips
+   near-tie suppressions; at scale 2 the shim's chroma fold moves the
+   colours); the float32 program on the card against the CPU on 2 frames
+   at 1920x1080 (counts equal, boxes within 1e-5, confidences within
+   5e-5), unmoved by TF32. ms per batch
+   in turns with the untiled program, the profiler's device busy time,
+   ops and top ops, and the bytes each upload route sends;
+4f. link_probe: serving/link.py's probes on the card (probe_h2d_mbps,
+   probe_tiled_route_ms at its default geometry and at a batch of 16
+   1080p frames' packed planes) and the decision tables of the default
+   EngineConfig and of coefficients decode with device annotation;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -81,10 +106,25 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    padded batch outside the worker, and each of stream 0's /face_stream
    parts the JPEG made from them (encode_coefs, or the splice), with the
    card held back after every program; the splice fallbacks are counted;
+5d. serve_tiled: the server in ycbcr decode with device annotation,
+   tile_min_pixels 921,600 (1280x720), a 2x2 grid, tiled_upload "auto",
+   under 4 senders x 15 fps of the 1080p JPEGs of 4e for 10 s: stream 0's
+   frames (it has a /face_stream viewer) take a tiled pixels unit drawn
+   on the host, the others ycbcr_tiled or ycbcr_tiled_rows, as the link
+   probe picks; the check round holds their records to TiledDetector's
+   programs on the same padded batches, every face part must be
+   1920x1080, and NMS launches must equal batches.
+   Every serve phase runs with link_adaptive on, records /stats "link",
+   and fails if the probe moved its decode or annotate mode;
 6. the whole run's seconds, the kernels line, the nvidia-smi line, and
    the final status line.
 
 Needs one CUDA card and the repository's sources; imports nothing of JAX.
+
+    python3 chip_smoke.py --serve-turns PARENT_DIR
+
+runs only the pixels/host and ycbcr/device serve phases, of the checkout
+at PARENT_DIR and of this one, in turns (parent, this, this, parent).
 """
 
 from __future__ import annotations
@@ -94,6 +134,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = pathlib.Path(__file__).resolve().parent
@@ -112,7 +153,14 @@ NMS_OPS_PER_PAIR = 14
 NMS_OPS_PER_BOX = 5  # two subtractions, two sign tests, one multiply
 
 
+STARTED = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also says when it ended (``t_s``,
+    seconds since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - STARTED, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -340,14 +388,11 @@ def check_nms_kernel(device) -> dict:
     return out
 
 
-def main_path_nms_input(device):
-    """The candidates the main path hands the NMS kernel, captured from
-    batched_nms: the frozen weights (RFB-320, bfloat16, top_k 256) on 16
-    synthetic 640x480 frames."""
-    from infercam_onnx_tpu_torch.detector import Detector
+def captured_nms_input(program, what: str):
+    """The candidates ``program()`` hands the NMS kernel, captured from
+    batched_nms; it must call the kernel once."""
     from infercam_onnx_tpu_torch.ops import nms
 
-    det = Detector(weights=str(WEIGHTS), device=device)
     captured = []
     real = nms.kernel
 
@@ -357,21 +402,37 @@ def main_path_nms_input(device):
 
     nms.kernel = capture
     try:
-        det.run_device(synthetic_batch(16, 640, 480), pack_output=True)
+        program()
     finally:
         nms.kernel = real
     if len(captured) != 1:
-        raise SystemExit(f"the main path called the nms kernel "
-                         f"{len(captured)} times, not once")
+        raise SystemExit(f"{what} called the nms kernel {len(captured)} "
+                         f"times, not once")
     return captured[0]
 
 
-def nms_inputs(device) -> dict:
-    """The three inputs the NMS kernel is timed at."""
+def nms_inputs(device, hd: list[bytes]) -> dict:
+    """The four inputs the NMS kernel is timed at: (b) the frozen weights
+    (RFB-320, bfloat16, top_k 256) on 16 synthetic 640x480 frames, (d) on
+    the 16 1080p JPEGs ``hd`` through a 2x2 TiledDetector."""
+    import numpy as np
+
+    from infercam_onnx_tpu_torch.detector import Detector
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.parallel.tiling import TiledDetector
+
     cases = nms_cases(device)
+    det = Detector(weights=str(WEIGHTS), device=device)
+    tiled = TiledDetector(det, HD, grid=(2, 2), overlap=0.2)
+    frames = np.stack(native_jpeg.load().decode_batch(hd))
     return {"a_random_b16_k256": cases["random_b16_k256"],
-            "b_main_path_b16_k256": main_path_nms_input(device),
-            "c_clustered_b16_k1024": cases["random_b16_k1024"]}
+            "b_main_path_b16_k256": captured_nms_input(
+                lambda: det.run_device(synthetic_batch(16, 640, 480),
+                                       pack_output=True), "the main path"),
+            "c_clustered_b16_k1024": cases["random_b16_k1024"],
+            "d_tiled_path_b16_k256": captured_nms_input(
+                lambda: tiled.run_device(frames, pack_output=True),
+                "the tiled path")}
 
 
 def nms_work(boxes_t, valid, keep) -> dict:
@@ -1189,20 +1250,228 @@ def check_card_vs_cpu(agreement: dict, what: str) -> None:
                          f"from the CPU's: {d}")
 
 
+# -- phase 4e and 4f: tiled high-resolution detection and the link probe ---
+
+HD = (1920, 1080)
+TILE_GRID, TILE_OVERLAP = (2, 2), 0.2
+
+
+def hd_jpegs(n: int) -> list[bytes]:
+    """n 1920x1080 quality-90 4:2:0 JPEGs of the synthetic pictures, plain
+    and mirrored, upscaled with PIL's bilinear filter (bench.py's
+    _hd_frames does the same with the photo corpus)."""
+    import io
+
+    from PIL import Image
+
+    pics = [Image.open(p).convert("RGB")
+            for p in sorted(SYNTH_PICS.glob("*.jpg"))]
+    out = []
+    for i in range(n):
+        im = pics[i % len(pics)]
+        if (i // len(pics)) % 2:
+            im = im.transpose(Image.Transpose.FLIP_LEFT_RIGHT)
+        buf = io.BytesIO()
+        im.resize(HD, Image.BILINEAR).save(buf, "JPEG", quality=90,
+                                           subsampling="4:2:0")
+        out.append(buf.getvalue())
+    return out
+
+
+def tiled_agreement(got, want) -> dict:
+    """The JAX package's bar for the tiled ycbcr against the tiled pixels
+    program (tests/test_parallel.py:131-144), per frame: counts within 2,
+    and each of the top three quarters of ``got``'s boxes within 5e-3 of a
+    distinct box of ``want`` (nearest first; near-tie confidences may
+    reorder rows)."""
+    import numpy as np
+
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    count_diff, worst = [], 0.0
+    for g, w in zip(got, want):
+        n_got, n_want = int(g[:, 5].sum()), int(w[:, 5].sum())
+        count_diff.append(n_got - n_want)
+        remaining = [w[j, :4] for j in range(n_want)]
+        for i in range(min(n_got, n_want) * 3 // 4):
+            dists = [float(np.abs(g[i, :4] - r).max()) for r in remaining]
+            j = int(np.argmin(dists))
+            worst = max(worst, dists[j])
+            remaining.pop(j)
+    return {"count_diff": count_diff, "worst_top_box_diff": worst,
+            "ok": max(map(abs, count_diff)) <= 2 and worst < 5e-3}
+
+
+def tiled_path(device, jpegs: list[bytes]) -> dict:
+    """TiledDetector (2x2, overlap 0.2; RFB-320 bf16, frozen weights) on
+    the 1080p ``jpegs`` at decode scales 1 and 2, through its three entry
+    points, against the plain scan, the 1x1 grid, the pixels program and
+    (float32, scale 1) the CPU; times in turns with the untiled program."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
+    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.parallel import tiling
+
+    shim = native_jpeg.load()
+    det = Detector(weights=str(WEIGHTS), device=device)
+    out = {"grid": TILE_GRID, "overlap": TILE_OVERLAP, "frames": len(jpegs),
+           "jpeg_bytes_per_frame": sum(map(len, jpegs)) / len(jpegs),
+           "by_scale": {}}
+    for scale in (1, 2):
+        frames = np.stack(shim.decode_batch(jpegs, scale=scale))
+        packed, geom = shim.decode_ycbcr_batch(jpegs, scale=scale)
+        w, h = geom["width"], geom["height"]
+        frames_dev = torch.from_numpy(frames).to(device)
+        packed_dev = torch.from_numpy(np.array(packed)).to(device)
+        rows = [torch.from_numpy(np.array(r)).to(device) for r in packed]
+        tiled = tiling.TiledDetector(det, (w, h), grid=TILE_GRID,
+                                     overlap=TILE_OVERLAP)
+        entries = {
+            "tiled_detect_program": lambda: tiled.run_device(
+                frames_dev, pack_output=True),
+            "tiled_detect_from_ycbcr": (
+                lambda: tiled.run_device_ycbcr_packed(packed_dev, geom,
+                                                      pack_output=True)),
+            "tiled_detect_from_ycbcr_rows": (
+                lambda: tiled.run_device_ycbcr_rows(rows, geom,
+                                                    pack_output=True))}
+        launches, outs = {}, {}
+        for name, call in entries.items():
+            call()  # the first call's cuDNN choices
+            torch.cuda.synchronize()
+            nms.kernel.launches = 0
+            outs[name] = call()
+            torch.cuda.synchronize()
+            launches[name] = nms.kernel.launches
+        kw = dict(tiles=tiled.tiles, pack_output=True, nms_impl="scan",
+                  **det._thresholds())
+        geo = dict({k: geom[k] for k in ("width", "height", "y_pw", "y_ph",
+                                         "c_pw", "c_ph")},
+                   sampling=tuple(geom["sampling"]))
+        scan_pixels = tiling.tiled_detect_program(
+            det.model, det.priors, frames_dev, tiled._r_h, tiled._r_w, **kw)
+        scan_ycbcr = tiling.tiled_detect_from_ycbcr_program(
+            det.model, det.priors, packed_dev, tiled._r_h, tiled._r_w,
+            **geo, **kw)
+        pixels = outs["tiled_detect_program"]
+        ycbcr = outs["tiled_detect_from_ycbcr"]
+        one = tiling.TiledDetector(det, (w, h), grid=(1, 1)).run_device(
+            frames_dev, pack_output=True)
+        untiled = det.run_device(frames_dev, pack_output=True)
+        prof = profile_device(entries["tiled_detect_program"], 10)
+        prof_y = profile_device(entries["tiled_detect_from_ycbcr"], 10)
+        out["by_scale"][scale] = {
+            "frame": [w, h], "tiles": tiled.tiles,
+            "tile_size": [tiled.tiles[0][2] - tiled.tiles[0][0],
+                          tiled.tiles[0][3] - tiled.tiles[0][1]],
+            "launches": launches,
+            "sanity": {n: check_packed(o, det.config.min_confidence)
+                       for n, o in outs.items()},
+            "kernel_equals_scan": {
+                "tiled_detect_program": bool(torch.equal(pixels,
+                                                         scan_pixels)),
+                "tiled_detect_from_ycbcr": bool(torch.equal(ycbcr,
+                                                            scan_ycbcr))},
+            "rows_equal_packed": bool(torch.equal(
+                outs["tiled_detect_from_ycbcr_rows"], ycbcr)),
+            "grid_1x1_vs_untiled": {
+                "identical": bool(torch.equal(one, untiled)),
+                "counts_equal": bool(torch.equal(one[..., 5],
+                                                 untiled[..., 5])),
+                "max_box_diff": float((one[..., :4] - untiled[..., :4])
+                                      .abs().max())},
+            "ycbcr_vs_pixels": tiled_agreement(ycbcr, pixels),
+            "ycbcr_parity_vs_pixels": parity_report(
+                unpack_detections(ycbcr.cpu().numpy()),
+                unpack_detections(pixels.cpu().numpy()),
+                iou_thresh=0.8, conf_tol=0.05).as_dict(),
+            "detections_tiled_vs_untiled": [int(pixels[..., 5].sum()),
+                                            int(untiled[..., 5].sum())],
+            "ms_per_batch_in_turns": in_turns({
+                "untiled_detect_program": lambda: det.run_device(
+                    frames_dev, pack_output=True), **entries}, 10),
+            "device_busy_ms_per_batch": prof["device_ms"],
+            "profiled_wall_ms_per_batch": prof["wall_ms"],
+            "device_idle_share": prof["idle_share"],
+            "device_ops_per_batch": prof["device_ops_per_iter"],
+            "top_device_ms": prof["top"],
+            "ycbcr_device_busy_ms_per_batch": prof_y["device_ms"],
+            "ycbcr_device_ops_per_batch": prof_y["device_ops_per_iter"],
+            "upload_bytes": {"pixels": int(frames.nbytes),
+                             "stacked": int(packed.nbytes),
+                             "rows": [len(packed), int(packed[0].nbytes)]},
+        }
+
+    # float32 on the card: the JAX package's tiled bar, ycbcr against
+    # pixels at scale 1 (tests/test_parallel.py holds it on a float32
+    # detector at full decode), over all the frames; then against the CPU
+    # on 2 frames at 1920x1080
+    config = DetectorConfig(compute_dtype="float32")
+    f32 = {dev: tiling.TiledDetector(
+        Detector(config, weights=str(WEIGHTS), device=dev), HD,
+        grid=TILE_GRID, overlap=TILE_OVERLAP) for dev in (device, "cpu")}
+    packed, geom = shim.decode_ycbcr_batch(jpegs)
+    out["float32_ycbcr_vs_pixels"] = tiled_agreement(
+        f32[device].run_device_ycbcr_packed(packed, geom, pack_output=True),
+        f32[device].run_device(np.stack(shim.decode_batch(jpegs)),
+                               pack_output=True))
+    frames = np.stack(shim.decode_batch(jpegs[:2]))
+    set_tf32("off")
+    got = f32[device].run_device(frames, pack_output=True).cpu()
+    want = f32["cpu"].run_device(frames, pack_output=True)
+    set_tf32("on_fp32_precision_api")
+    tf32 = f32[device].run_device(frames, pack_output=True).cpu()
+    set_tf32("default")
+    out["float32_cuda_vs_cpu"] = {
+        "detections": detections_agreement(got, want),
+        "moved_by_tf32": not torch.equal(tf32, got)}
+    return out
+
+
+def link_probe(device) -> dict:
+    """serving/link.py's probes on the card, three readings each, and the
+    decision tables they give (the thresholds are the JAX package's, for
+    its TPU host link)."""
+    from infercam_onnx_tpu_torch.config import EngineConfig
+    from infercam_onnx_tpu_torch.serving import link
+
+    mbps = [link.probe_h2d_mbps(device=device) for _ in range(3)]
+    ab = [link.probe_tiled_route_ms(device=device) for _ in range(3)]
+    # a batch of 16 1080p frames' packed 4:2:0 planes at decode scale 1
+    ab16 = [link.probe_tiled_route_ms(frames=16,
+                                      mb_per_frame=3_133_440 / 2 ** 20,
+                                      device=device) for _ in range(3)]
+    coef = EngineConfig(decode_mode="coefficients", annotate_mode="device",
+                        tile_min_pixels=921_600)
+    return {"h2d_mbps_4mb": mbps,
+            "tiled_route_ms_b4_0.78mb": ab,
+            "tiled_route_ms_b16_1080p": ab16,
+            "decisions": {
+                "default": link.decide(EngineConfig(), mbps[0]),
+                "coefficients_device_annotate": link.decide(
+                    coef, mbps[0], tiled_ab_ms=ab[0])}}
+
+
 # -- phase 5: the serving tier ----------------------------------------------
 
 SERVE_STREAMS = 16
 SERVE_FPS = 30.0
 SERVE_SECONDS = 10.0
 SERVE_STAGES = ("decode", "upload", "device", "device_ycbcr", "device_coef",
-                "device_annot", "draw", "encode")
-# the programs the worker dispatches, each lagged in the check round
-LAGGED = ("run_device", "run_device_ycbcr_packed", "run_device_annotated",
-          "run_device_ycbcr_annotated", "run_device_coefficients_arrays",
-          "run_device_coefficients_annotated_packed")
+                "device_annot", "device_tiled", "draw", "encode")
 SERVE_CHECK_FRAMES = 4  # per stream, in the check round before the window
 SERVE_LAG_CYCLES = 300_000_000  # ~0.15 s of the card after a checked batch
-SERVE_NAMES = [f"cam{i}" for i in range(SERVE_STREAMS)]
+# the tiled serve phase: 4 cameras at 15 fps of 1080p
+TILED_STREAMS, TILED_FPS = 4, 15.0
+TILE_MIN_PIXELS = 1280 * 720
+
+
+def serve_names(streams: int) -> list[str]:
+    return [f"cam{i}" for i in range(streams)]
 
 
 class HttpViewer:
@@ -1240,13 +1509,14 @@ class HttpViewer:
         await asyncio.gather(self._task, return_exceptions=True)
 
 
-async def load_generator(http_port: int, socket_port: int) -> None:
+async def load_generator(http_port: int, socket_port: int, streams: int,
+                         fps: float, pics: str) -> None:
     """The serve phase's traffic, in a process of its own, as the edge
     senders and viewers of a deployment are: a /detections viewer per
     stream and a /face_stream viewer on stream 0. Each "send N" read from
-    stdin runs the port's sender on every stream for N frames at
-    SERVE_FPS and prints {"sent", "send_s"}; "stop" closes the viewers
-    and prints what they received."""
+    stdin runs the port's sender on every one of ``streams`` streams for N
+    frames of the JPEGs in ``pics`` at ``fps`` and prints {"sent",
+    "send_s"}; "stop" closes the viewers and prints what they received."""
     import asyncio
 
     from infercam_onnx_tpu_torch import codec
@@ -1259,18 +1529,18 @@ async def load_generator(http_port: int, socket_port: int) -> None:
     async def command() -> list[str]:
         return (await loop.run_in_executor(None, sys.stdin.readline)).split()
 
+    names = serve_names(streams)
     dets = [await HttpViewer.open(http_port, f"/detections?name={n}")
-            for n in SERVE_NAMES]
-    faces = await HttpViewer.open(http_port,
-                                  f"/face_stream?name={SERVE_NAMES[0]}")
+            for n in names]
+    faces = await HttpViewer.open(http_port, f"/face_stream?name={names[0]}")
     address = f"127.0.0.1:{socket_port}"
     while (cmd := await command())[:1] == ["send"]:
         start = time.perf_counter()
         sent = sum(await asyncio.gather(*(
-            send_stream(ReplaySource(str(SYNTH_PICS), fps=SERVE_FPS),
+            send_stream(ReplaySource(pics, fps=fps),
                         ClientConfig(address=address, channel=n),
                         max_frames=int(cmd[1]))
-            for n in SERVE_NAMES)))
+            for n in names)))
         emit({"sent": sent, "send_s": time.perf_counter() - start})
     for viewer in (*dets, faces):
         await viewer.close()
@@ -1328,7 +1598,22 @@ def expected_face_jpeg(unit: dict, outs: list, i: int) -> bytes:
                              native_jpeg.quant_tables_cached(95))
 
 
-async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
+async def get_json(port: int, path: str) -> dict:
+    """One GET of a JSON endpoint of the server."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n"
+                 f"Connection: close\r\n\r\n".encode())
+    await writer.drain()
+    data = await asyncio.wait_for(reader.read(), 30.0)
+    writer.close()
+    return json.loads(data.split(b"\r\n\r\n", 1)[1])
+
+
+async def _serve(device, decode_mode: str, annotate_mode: str, *,
+                 streams: int, fps: float, frame: tuple[int, int],
+                 pics: pathlib.Path, **engine_kw) -> dict:
     import asyncio
 
     import torch
@@ -1351,15 +1636,18 @@ async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
                                    queue_capacity=32, batch_window_ms=4.0,
                                    coalesce_streams=True,
                                    decode_mode=decode_mode,
-                                   annotate_mode=annotate_mode),
-        detector=det, warmup_resolutions=[(480, 640)])
+                                   annotate_mode=annotate_mode,
+                                   link_adaptive=True, **engine_kw),
+        detector=det, warmup_resolutions=[frame[::-1]])
     warmup_s = time.perf_counter() - t0
+    link_stats = (await get_json(server.http_port, "/stats"))["link"]
 
     worker, router = server.worker, server.router
-    keys = [stream_key(n) for n in SERVE_NAMES]
+    keys = [stream_key(n) for n in serve_names(streams)]
     proc = await asyncio.create_subprocess_exec(
         sys.executable, str(REPO / "chip_smoke.py"), "--load-generator",
-        str(server.http_port), str(server.socket_port), cwd=str(REPO),
+        str(server.http_port), str(server.socket_port), str(streams),
+        str(fps), str(pics), cwd=str(REPO),
         stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE)
 
     async def send(frames: int) -> dict:
@@ -1416,22 +1704,20 @@ async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
         published.update((id(c), []) for c in (*det_chans.values(),
                                                 face_chan))
         worker._device_stage, worker._publish = device_tap, publish_tap
-        for name in LAGGED:
-            setattr(det, name, lagging(getattr(det, name)))
+        worker._program = lagging(worker._program)  # every unit kind's
         METER.drain()
         try:
             await send(SERVE_CHECK_FRAMES)
         finally:
             worker._device_stage, worker._publish = device_stage, publish
-            for name in LAGGED:
-                delattr(det, name)
+            del worker._program
 
         # the measured window, through the worker as it is
         METER.drain()
         STAGES.drain()
         nms.kernel.launches = 0
         start = time.perf_counter()
-        load = await send(int(SERVE_FPS * SERVE_SECONDS))
+        load = await send(int(fps * SERVE_SECONDS))
         window_s = time.perf_counter() - start
         launches = nms.kernel.launches
         snap, stages = METER.drain(), STAGES.drain()
@@ -1448,7 +1734,7 @@ async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
 
     records = [[json.loads(line) for line in lines]
                for lines in load["records"]]
-    frame_ok = all(r["width"] == 640 and r["height"] == 480
+    frame_ok = all((r["width"], r["height"]) == tuple(frame)
                    and all(d["confidence"] > det.config.min_confidence
                            for d in r["detections"])
                    for recs in records for r in recs)
@@ -1491,8 +1777,10 @@ async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
     e2e = stages.get("e2e", {})
     return {
         "model": "RFB-320", "dtype": "bfloat16", "decode_mode": decode_mode,
-        "annotate_mode": annotate_mode, "streams": SERVE_STREAMS,
-        "fps_per_stream": SERVE_FPS, "frame": [640, 480],
+        "annotate_mode": annotate_mode, "streams": streams,
+        "fps_per_stream": fps, "frame": list(frame),
+        "engine": engine_kw, "link": link_stats,
+        "tiled_route": worker._effective_tiled_route,
         "load_generator": "a child process: the port's senders and the "
                           "HTTP viewers in one event loop",
         "warmup_s": warmup_s, "send_s": load["send_s"], "window_s": window_s,
@@ -1525,21 +1813,56 @@ async def _serve(device, decode_mode: str, annotate_mode: str) -> dict:
 
 
 def serve_phase(device, decode_mode: str = "pixels",
-                annotate_mode: str = "host") -> dict:
+                annotate_mode: str = "host", *, streams: int = SERVE_STREAMS,
+                fps: float = SERVE_FPS, frame: tuple[int, int] = (640, 480),
+                pics: pathlib.Path = SYNTH_PICS, **engine_kw) -> dict:
     """The port's server in this process on ``device``: RFB-320 bfloat16
     on the frozen weights, buckets 1-16, queue 32, a 4 ms gather window,
     coalescing, ``decode_mode`` decode at scale 1 and ``annotate_mode``
-    annotation, warmed up at 640x480.
-    The traffic comes from ``load_generator`` in a child process: 16 port
-    senders replay the synthetic pictures at 30 fps each, first for
-    SERVE_CHECK_FRAMES frames (the check round), then for 10 s (the
-    measured window); every stream has a /detections viewer, stream 0 a
-    /face_stream viewer too. The NMS launch count is set to 0 just before
-    the window's senders start and read once every frame sent was served
-    or dropped."""
+    annotation, the link probe on (and ``engine_kw``), warmed up at
+    ``frame`` (width, height).
+    The traffic comes from ``load_generator`` in a child process:
+    ``streams`` port senders replay the JPEGs of ``pics`` (``frame``
+    sized) at ``fps`` each, first for SERVE_CHECK_FRAMES frames (the check
+    round), then for 10 s (the measured window); every stream has a
+    /detections viewer, stream 0 a /face_stream viewer too. The NMS launch
+    count is set to 0 just before the window's senders start and read once
+    every frame sent was served or dropped."""
     import asyncio
 
-    return asyncio.run(_serve(device, decode_mode, annotate_mode))
+    return asyncio.run(_serve(device, decode_mode, annotate_mode,
+                              streams=streams, fps=fps, frame=frame,
+                              pics=pics, **engine_kw))
+
+
+def check_tiled(tiled: dict) -> None:
+    """The tiled phase's failure conditions."""
+    for scale, rec in tiled["by_scale"].items():
+        bad = {n: c for n, c in rec["launches"].items() if c != 1}
+        if bad:
+            raise SystemExit(f"tiled programs at scale {scale} launched the "
+                             f"nms kernel {bad} times, not once")
+        if not all(s["ok"] for s in rec["sanity"].values()):
+            raise SystemExit("tiled output failed its sanity checks")
+        if not all(rec["kernel_equals_scan"].values()):
+            raise SystemExit(f"a tiled program's output differs between "
+                             f"the kernel and the plain scan at scale "
+                             f"{scale}: {rec['kernel_equals_scan']}")
+        if not rec["rows_equal_packed"]:
+            raise SystemExit("the tiled rows program differs from the "
+                             "packed one")
+        one = rec["grid_1x1_vs_untiled"]
+        if not one["counts_equal"] or one["max_box_diff"] > 1e-5:
+            raise SystemExit(f"a 1x1 grid differs from the untiled "
+                             f"program: {one}")
+    if not tiled["float32_ycbcr_vs_pixels"]["ok"]:
+        raise SystemExit(f"the float32 tiled ycbcr program fails the JAX "
+                         f"bar against the pixels one: "
+                         f"{tiled['float32_ycbcr_vs_pixels']}")
+    f32 = tiled["float32_cuda_vs_cpu"]
+    check_card_vs_cpu(f32, "the float32 tiled program")
+    if f32["moved_by_tf32"]:
+        raise SystemExit("the float32 tiled program moved with TF32")
 
 
 def check_serve(serve: dict) -> None:
@@ -1550,9 +1873,15 @@ def check_serve(serve: dict) -> None:
         raise SystemExit(f"the server launched the nms kernel "
                          f"{serve['nms_launches']} times for "
                          f"{serve['batches']} batches")
-    if not serve["face_parts"] or serve["face_part_shapes"] != [[480, 640, 3]]:
-        raise SystemExit(f"/face_stream parts are not all 640x480: "
+    w, h = serve["frame"]
+    if not serve["face_parts"] or serve["face_part_shapes"] != [[h, w, 3]]:
+        raise SystemExit(f"/face_stream parts are not all {w}x{h}: "
                          f"{serve['face_part_shapes']}")
+    decisions = serve["link"]["decisions"]
+    for key in ("decode_mode", "annotate_mode"):
+        if decisions[key]["effective"] != serve[key]:
+            raise SystemExit(f"the link probe moved the {key}: "
+                             f"{decisions[key]}")
     if not min(serve["detection_records"]) or not serve["detection_records_ok"]:
         raise SystemExit("a /detections viewer got no or malformed records")
     ident = serve["served_identical_to_run_device"]
@@ -1562,13 +1891,52 @@ def check_serve(serve: dict) -> None:
     if not all(serve["checked_face_parts_identical"]):
         raise SystemExit("a served /face_stream part differs from the JPEG "
                          "of its program's outputs on the same padded batch")
-    if serve["annotate_mode"] == "device":
+    if serve["annotate_mode"] == "device" and not serve["engine"].get(
+            "tile_min_pixels"):
         annot = {"pixels": "pixels_annot", "ycbcr": "ycbcr_annot",
                  "coefficients": "coef_annot"}[serve["decode_mode"]]
         if (not serve["checked_batch_kinds"].get(annot)
                 or not serve["checked_face_parts_identical"]):
             raise SystemExit(f"no checked batch took the annotated unit "
                              f"({annot})")
+
+
+TURNS_CODE = """
+import json, sys, time, torch
+import chip_smoke as cs
+cs.build_kernels()
+out = {}
+for mode in (("pixels", "host"), ("ycbcr", "device")):
+    t0 = time.perf_counter()
+    r = cs.serve_phase(torch.device("cuda", 0), *mode)
+    out["_".join(mode)] = dict({k: r[k] for k in (
+        "inferred_fps", "frames_dropped", "e2e_p50_ms", "e2e_p99_ms",
+        "mean_batch", "stage_mean_ms")}, phase_s=time.perf_counter() - t0)
+print("TURN " + json.dumps(out), flush=True)
+"""
+
+
+def serve_turns(parent: str) -> int:
+    """The pixels/host and ycbcr/device serve phases of the checkout at
+    ``parent`` (another commit's tree, e.g. unpacked with git archive) and
+    of this one, in turns on one card: parent, this, this, parent, each in
+    a process of its own. One JSON line a run."""
+    trees = {"parent": pathlib.Path(parent).resolve(), "this": REPO}
+    for name in ("parent", "this", "this", "parent"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", TURNS_CODE],
+                              cwd=trees[name], capture_output=True,
+                              text=True, timeout=900)
+        lines = [ln[5:] for ln in proc.stdout.splitlines()
+                 if ln.startswith("TURN ")]
+        emit({"turn": name, "tree": str(trees[name]),
+              "rc": proc.returncode, "s": time.perf_counter() - t0,
+              "result": json.loads(lines[0]) if lines else None,
+              "stderr_tail": proc.stderr[-800:] if proc.returncode else ""})
+        if proc.returncode:
+            return proc.returncode
+    print(gpu_info(), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -1594,7 +1962,8 @@ def main() -> int:
         raise SystemExit("nms kernel disagrees with its plain version")
     if kcheck["cases_not_launched_once"]:
         raise SystemExit("a call of the nms kernel did not launch it once")
-    inputs = nms_inputs(device)
+    hd = hd_jpegs(16)
+    inputs = nms_inputs(device, hd)
     ktime = time_nms(device, inputs)
     for key, rec in ktime.items():
         emit({"phase": "nms_time", "input": key, "gpu": name,
@@ -1699,6 +2068,13 @@ def main() -> int:
         raise SystemExit("coefficients detections fell below 0.9 box parity "
                          "with the pixels path")
 
+    tiled = tiled_path(device, hd)
+    emit({"phase": "tiled_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", "batch": len(hd), **tiled})
+    check_tiled(tiled)
+    probe = link_probe(device)
+    emit({"phase": "link_probe", "gpu": name, "power_limit": power, **probe})
+
     serves = {}
     for phase, decode_mode, annotate_mode, unit in (
             ("serve", "pixels", "host", "pixels"),
@@ -1711,6 +2087,21 @@ def main() -> int:
         if not rec["checked_batch_kinds"].get(unit):
             raise SystemExit(f"no checked batch of the {phase} server took "
                              f"its {unit} unit")
+    with tempfile.TemporaryDirectory() as pics:
+        for i, data in enumerate(hd):
+            (pathlib.Path(pics) / f"hd{i:02d}.jpg").write_bytes(data)
+        rec = serves["serve_tiled"] = serve_phase(
+            device, "ycbcr", "device", streams=TILED_STREAMS, fps=TILED_FPS,
+            frame=HD, pics=pathlib.Path(pics),
+            tile_min_pixels=TILE_MIN_PIXELS, tile_grid=TILE_GRID,
+            tile_overlap=TILE_OVERLAP, tiled_upload="auto")
+    emit({"phase": "serve_tiled", "gpu": name, "power_limit": power, **rec})
+    check_serve(rec)
+    kinds = rec["checked_batch_kinds"]
+    if not kinds.get("pixels") or not (kinds.get("ycbcr_tiled")
+                                       or kinds.get("ycbcr_tiled_rows")):
+        raise SystemExit(f"the tiled server's checked batches took {kinds}, "
+                         f"not a pixels and a tiled ycbcr unit")
 
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     head = ktime["a_random_b16_k256"]
@@ -1728,6 +2119,7 @@ def main() -> int:
             "detect_from_ycbcr": ycbcr["by_scale"][1]["launches"]["nms"],
             **{prog: rec["launches"]["nms"] for prog, rec in (
                 *annot["by_program"].items(), *coef["by_program"].items())},
+            **tiled["by_scale"][1]["launches"],
             **{phase: rec["nms_launches"] for phase, rec in serves.items()}},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
@@ -1746,9 +2138,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-turns"]:
+        sys.exit(serve_turns(sys.argv[2]))
     if sys.argv[1:2] == ["--load-generator"]:  # the serve phase's child
         import asyncio
 
-        asyncio.run(load_generator(int(sys.argv[2]), int(sys.argv[3])))
+        asyncio.run(load_generator(int(sys.argv[2]), int(sys.argv[3]),
+                                   int(sys.argv[4]), float(sys.argv[5]),
+                                   sys.argv[6]))
         sys.exit(0)
     sys.exit(main())

@@ -4,8 +4,8 @@
 ``ClientConfig`` mirror ``infercam_onnx_tpu/config.py`` with the same
 names and defaults (the reference's serve-time setup: RFB-320, max_iou
 0.5, min_confidence 0.5, JPEG quality 95 at 4:2:0, ingest capacity 200,
-broadcast rings of 20, device annotation), for the fields the ported
-serving path reads.
+broadcast rings of 20, device annotation, the link policy's thresholds,
+tiling off), for the fields the ported serving path reads.
 """
 
 from __future__ import annotations
@@ -67,12 +67,46 @@ class EngineConfig:
     # reads back; a frame whose overlay touches more is annotated on the
     # host from its JPEG bytes.
     annotate_splice_blocks: int = 768
+    # Link-adaptive path selection (serving/link.py): probe the
+    # host->device rate after the warm-up and re-select the decode mode,
+    # the tiled upload route and the annotate mode by it; /stats shows the
+    # decisions under "link".
+    link_adaptive: bool = True
+    # MB/s at or above which the link is healthy; below it the
+    # coefficients mode serves through the packed YCbCr planes.
+    link_healthy_h2d_mbps: float = 250.0
+    # Re-probe every this many seconds (0: once, after the warm-up).
+    link_probe_period_s: float = 0.0
+    # MB/s below which device annotation gives way to the host draw.
+    link_annotate_floor_mbps: float = 10.0
+    # MB/s below which tiled_upload "auto" picks "rows" when no A/B
+    # measurement is taken.
+    link_tiled_rows_below_mbps: float = 40.0
+    # Time both tiled upload routes on each probe and let "auto" pick
+    # the faster (needs tile_min_pixels).
+    link_tiled_ab_probe: bool = True
+    # A/B gaps under this percent of the slower route pick "stacked".
+    link_tiled_ab_tie_pct: float = 10.0
+    # Upload of tiled packed-plane batches: "stacked" (one copy of the
+    # batch), "rows" (one copy a frame, stacked on the device) or "auto"
+    # (by the link probe; "rows" until the first probe when link_adaptive
+    # is on, "stacked" when it is off). The thresholds above were measured
+    # on the JAX package's TPU host link.
+    tiled_upload: str = "auto"
+    # Frames (after decode) with at least this many pixels run through an
+    # overlapping tile grid with a cross-tile NMS merge
+    # (parallel/tiling.py); 0 turns tiling off.
+    tile_min_pixels: int = 0
+    tile_grid: tuple[int, int] = (2, 2)
+    tile_overlap: float = 0.2
 
     def __post_init__(self):
         for field, value, known in (
                 ("decode_mode", self.decode_mode,
                  ("pixels", "ycbcr", "coefficients")),
-                ("annotate_mode", self.annotate_mode, ("device", "host"))):
+                ("annotate_mode", self.annotate_mode, ("device", "host")),
+                ("tiled_upload", self.tiled_upload,
+                 ("auto", "rows", "stacked"))):
             if value not in known:
                 raise ValueError(f"unknown {field} {value!r}; use one of "
                                  f"{known}")

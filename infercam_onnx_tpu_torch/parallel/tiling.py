@@ -1,0 +1,224 @@
+"""Tiled high-resolution detection with a cross-tile NMS merge, on one
+device (the port of ``infercam_onnx_tpu/parallel/tiling.py`` without its
+mesh arguments).
+
+The model input is 320x240 (RFB-320); a face that is small in a 1080p
+frame falls below the detector's prior scales once the whole frame is
+squashed to that size. So the frame splits into an overlapping grid of
+equal tiles, every tile runs the whole detector as one more batch row,
+each tile's boxes are mapped back into frame coordinates, and one
+filter + greedy NMS over the merged candidates of all tiles drops the
+duplicates that the overlaps produce.
+
+`batched_nms` cuts the T x K merged candidates of an image to ``top_k``
+before the suppression, so the NMS kernel (``csrc/nms.cu``) runs once a
+call on [B, 4, top_k]. With ``top_k`` above the kernel's limit of 1024 it
+raises, as on the untiled path; nothing falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from infercam_onnx_tpu_torch.config import full_float32
+from infercam_onnx_tpu_torch.detector import (Detection, Detector,
+                                              pack_detections,
+                                              unpack_detections)
+from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
+                                                     unpack_ycbcr_planes)
+from infercam_onnx_tpu_torch.ops.postprocess import batched_nms
+from infercam_onnx_tpu_torch.ops.preprocess import preprocess_images
+
+Tile = tuple[int, int, int, int]
+
+
+def tile_grid_boxes(width: int, height: int, grid: tuple[int, int],
+                    overlap: float = 0.2) -> list[Tile]:
+    """Pixel boxes (x0, y0, x1, y1) of an overlapping cols x rows grid.
+
+    Tiles are equally sized (so one pair of resize matrices serves all)
+    and overlap adjacent tiles by ``overlap`` of the tile extent, so a face
+    on a seam is seen whole by at least one tile."""
+    cols, rows = grid
+    tile_w = int(np.ceil(width / (cols - (cols - 1) * overlap)))
+    tile_h = int(np.ceil(height / (rows - (rows - 1) * overlap)))
+    xs = (np.linspace(0, width - tile_w, cols).round().astype(int)
+          if cols > 1 else np.array([0]))
+    ys = (np.linspace(0, height - tile_h, rows).round().astype(int)
+          if rows > 1 else np.array([0]))
+    return [(int(x), int(y), int(x) + tile_w, int(y) + tile_h)
+            for y in ys for x in xs]
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_mapping(tiles: tuple[Tile, ...], width: int, height: int,
+                  device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scale [4], shift [T, 4]) float32 on ``device``, copied there once:
+    a tile's relative box times ``scale`` plus its row of ``shift`` is the
+    box relative to the whole frame (the JAX program's constants, built in
+    its order)."""
+    tw, th = tiles[0][2] - tiles[0][0], tiles[0][3] - tiles[0][1]
+    offs_x = torch.tensor([t[0] for t in tiles], dtype=torch.float32)
+    offs_y = torch.tensor([t[1] for t in tiles], dtype=torch.float32)
+    scale = torch.tensor([tw / width, th / height, tw / width, th / height],
+                         dtype=torch.float32)
+    shift = torch.stack([offs_x / width, offs_y / height,
+                         offs_x / width, offs_y / height], dim=-1)
+    return scale.to(device), shift.to(device)
+
+
+@torch.inference_mode()
+@full_float32()
+def tiled_detect_program(
+    model,
+    priors: torch.Tensor,
+    images: torch.Tensor,  # [B, H, W, 3] uint8 (or float on the u8 grid)
+    r_h: torch.Tensor,  # [model_h, tile_h]
+    r_w: torch.Tensor,  # [model_w, tile_w]
+    *,
+    tiles: tuple[Tile, ...],
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+    pack_output: bool = False,
+    nms_impl: str = "kernel",
+):
+    """Frames in, padded detections in frame coordinates out, all on
+    ``images.device``: the tiles as static slices stacked to [B*T, th, tw,
+    3], the resize and the model over all of them at once, each tile's
+    boxes mapped into the frame, and `batched_nms` over the [B, T*K]
+    merged candidates. Returns what `detector.detect_program` returns;
+    ``nms_impl`` is `batched_nms`'s ``impl``."""
+    b, height, width, _ = images.shape
+    t = len(tiles)
+    th = tiles[0][3] - tiles[0][1]
+    tw = tiles[0][2] - tiles[0][0]
+    flat = torch.stack([images[:, y0:y1, x0:x1, :]
+                        for (x0, y0, x1, y1) in tiles],
+                       dim=1).reshape(b * t, th, tw, 3)
+    x = preprocess_images(flat, r_h, r_w)
+    scores, boxes = model(x, priors)
+    k = boxes.shape[1]
+    scale, shift = _tile_mapping(tiles, width, height, images.device)
+    boxes = boxes.reshape(b, t, k, 4) * scale + shift[None, :, None, :]
+    sel_boxes, sel_conf, count = batched_nms(
+        scores[:, :, 1].reshape(b, t * k), boxes.reshape(b, t * k, 4),
+        min_confidence=min_confidence, max_iou=max_iou, top_k=top_k,
+        max_detections=max_detections, impl=nms_impl)
+    if not pack_output:
+        return sel_boxes, sel_conf, count
+    return pack_detections(sel_boxes, sel_conf, count)
+
+
+@torch.inference_mode()
+def tiled_detect_from_ycbcr_program(
+    model,
+    priors: torch.Tensor,
+    packed: torch.Tensor,  # [B, n] uint8 packed planes
+    r_h: torch.Tensor,
+    r_w: torch.Tensor,
+    *,
+    width: int,
+    height: int,
+    y_pw: int,
+    y_ph: int,
+    c_pw: int,
+    c_ph: int,
+    sampling: tuple[int, int],
+    **kw,
+):
+    """Packed YCbCr planes in (``decode_ycbcr_batch``'s layout): a 4:2:0
+    frame crosses to the device at ~1.5 bytes a pixel instead of 3. The
+    chroma upsample and BT.601 run on the device as on the untiled ycbcr
+    path, then `tiled_detect_program` (``kw``)."""
+    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph, c_pw=c_pw,
+                                    c_ph=c_ph)
+    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                        sampling=sampling)
+    return tiled_detect_program(model, priors, rgb, r_h, r_w, **kw)
+
+
+def tiled_detect_from_ycbcr_rows_program(model, priors: torch.Tensor,
+                                         rows, r_h: torch.Tensor,
+                                         r_w: torch.Tensor, **kw):
+    """The batch as B separate [n] rows, each uploaded by a copy of its
+    own, stacked on the device (a device-local copy), then
+    `tiled_detect_from_ycbcr_program`."""
+    return tiled_detect_from_ycbcr_program(model, priors, torch.stack(rows),
+                                           r_h, r_w, **kw)
+
+
+class TiledDetector:
+    """High-resolution detection of ``frame_size`` frames through a tile
+    grid, on the wrapped detector's device with its model, priors and
+    thresholds (no copy of the weights)."""
+
+    def __init__(self, detector: Detector, frame_size: tuple[int, int],
+                 grid: tuple[int, int] = (2, 2), overlap: float = 0.2):
+        self.detector = detector
+        self.frame_w, self.frame_h = frame_size  # (width, height)
+        self.tiles = tuple(tile_grid_boxes(self.frame_w, self.frame_h,
+                                           grid, overlap))
+        x0, y0, x1, y1 = self.tiles[0]
+        self._r_h, self._r_w = detector.preprocessor.matrices(x1 - x0,
+                                                              y1 - y0)
+        self._static = dict(tiles=self.tiles, **detector._thresholds())
+
+    def _ycbcr_kw(self, geom: dict) -> dict:
+        """The geometry keywords of the ycbcr programs; raises on a frame
+        of another size than the tile grid's."""
+        if (geom["width"], geom["height"]) != (self.frame_w, self.frame_h):
+            raise ValueError(
+                f"geometry {geom['width']}x{geom['height']} != tiled "
+                f"frame {self.frame_w}x{self.frame_h}")
+        keys = ("width", "height", "y_pw", "y_ph", "c_pw", "c_ph")
+        return dict({k: geom[k] for k in keys},
+                    sampling=tuple(geom["sampling"]), **self._static)
+
+    def run_device(self, images: torch.Tensor | np.ndarray, *,
+                   pack_output: bool = False):
+        """[B, frame_h, frame_w, 3] uint8 -> (boxes, confs, counts) in
+        frame-relative coordinates ([B, D, 6] with ``pack_output``), on the
+        device. Returns without waiting for the device."""
+        images = self.detector._on_device(images)
+        h, w = int(images.shape[1]), int(images.shape[2])
+        if (w, h) != (self.frame_w, self.frame_h):
+            # the tile boxes are fixed per frame size: another size would
+            # cover a corner only, or fail in a slice
+            raise ValueError(f"frame {w}x{h} != tiled frame size "
+                             f"{self.frame_w}x{self.frame_h}")
+        det = self.detector
+        return tiled_detect_program(det.model, det.priors, images, self._r_h,
+                                    self._r_w, pack_output=pack_output,
+                                    **self._static)
+
+    def run_device_ycbcr_packed(self, packed: torch.Tensor | np.ndarray,
+                                geom: dict, *, pack_output: bool = False):
+        """[B, n] packed planes of ``geom`` (``decode_ycbcr_batch``'s) ->
+        detections as `run_device` gives them, one host->device copy."""
+        kw = self._ycbcr_kw(geom)
+        det = self.detector
+        return tiled_detect_from_ycbcr_program(
+            det.model, det.priors, det._on_device(packed), self._r_h,
+            self._r_w, pack_output=pack_output, **kw)
+
+    def run_device_ycbcr_rows(self, rows, geom: dict, *,
+                              pack_output: bool = False):
+        """``rows``: B per-frame [n] packed-plane rows (device tensors, each
+        the product of its own upload, or host arrays) -> detections as
+        `run_device_ycbcr_packed` gives them; the batch is stacked on the
+        device."""
+        kw = self._ycbcr_kw(geom)
+        det = self.detector
+        return tiled_detect_from_ycbcr_rows_program(
+            det.model, det.priors, [det._on_device(r) for r in rows],
+            self._r_h, self._r_w, pack_output=pack_output, **kw)
+
+    def detect_batch(self, images) -> list[list[Detection]]:
+        """[B, frame_h, frame_w, 3] uint8 -> per-frame detection lists."""
+        packed = self.run_device(images, pack_output=True)
+        return unpack_detections(packed.cpu().numpy())

@@ -13,11 +13,18 @@ Usage::
         [--warmup 640x480,1280x720] [--warmup-sync] [--decode-scale 1] \
         [--decode-mode pixels|ycbcr|coefficients] [--annotate device|host] \
         [--annotate-splice-blocks 768] [--assume-frame-dims 1280x720] \
+        [--tile-min-pixels N] [--tile-grid 2x2] \
+        [--tiled-upload auto|rows|stacked] \
+        [--link-adaptive on|off] [--link-healthy-mbps 250] \
+        [--link-probe-period 0] [--link-annotate-floor-mbps 10] \
+        [--link-tiled-crossover-mbps 40] [--link-tiled-ab on|off] \
+        [--link-tiled-ab-tie-pct 10] \
         [--max-rss-mb N] [--profile-dir DIR]
 
 The flags are the JAX server's for the ported paths: every decode mode
-(pixels, ycbcr, coefficients) and both annotate modes (device by default,
-host), one device; the presets are the JAX server's.
+(pixels, ycbcr, coefficients), both annotate modes (device by default,
+host), tiled high-resolution detection and the link probe, one device;
+the presets are the JAX server's.
 ``--device`` picks the device (``cuda`` unless asked otherwise); without
 ``--weights`` the weights are the detector's seeded random ones. Port 0
 in an address binds a free port.
@@ -134,6 +141,42 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--assume-frame-dims", default=None,
                     help="scale drawn boxes by WxH instead of the decoded "
                          "frame's size (the reference hard-codes 1280x720)")
+    ap.add_argument("--tile-min-pixels", type=int, default=0,
+                    help="frames with at least this many pixels (after "
+                         "decode) run through an overlapping tile grid "
+                         "with a cross-tile NMS merge (0: off; e.g. "
+                         "921600 for 1280x720 and up)")
+    ap.add_argument("--tile-grid", default="2x2",
+                    help="tile grid CxR for those frames")
+    ap.add_argument("--tiled-upload", default="auto",
+                    choices=["auto", "rows", "stacked"],
+                    help="upload of tiled packed-plane batches: stacked = "
+                         "one copy of the batch, rows = one copy a frame "
+                         "stacked on the device, auto = by the link probe")
+    ap.add_argument("--link-adaptive", default="on", choices=["on", "off"],
+                    help="probe the host->device rate after start-up (and "
+                         "every --link-probe-period s) and re-select the "
+                         "decode mode, tiled upload and annotate mode by "
+                         "it; /stats 'link' shows the decisions. off = "
+                         "serve exactly the configured paths")
+    ap.add_argument("--link-healthy-mbps", type=float, default=250.0,
+                    help="MB/s at or above which the link is healthy; "
+                         "below it coefficients mode serves through the "
+                         "packed YCbCr planes")
+    ap.add_argument("--link-probe-period", type=float, default=0.0,
+                    help="re-probe the link every N seconds (0: once)")
+    ap.add_argument("--link-annotate-floor-mbps", type=float, default=10.0,
+                    help="MB/s below which device annotation gives way to "
+                         "the host draw")
+    ap.add_argument("--link-tiled-crossover-mbps", type=float, default=40.0,
+                    help="with --link-tiled-ab off, links below this many "
+                         "MB/s take the rows route under --tiled-upload "
+                         "auto")
+    ap.add_argument("--link-tiled-ab", default="on", choices=["on", "off"],
+                    help="time both tiled upload routes on each probe and "
+                         "let --tiled-upload auto take the faster")
+    ap.add_argument("--link-tiled-ab-tie-pct", type=float, default=10.0,
+                    help="A/B gaps below this percent pick stacked")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the run here")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
@@ -170,7 +213,17 @@ def main(argv: list[str] | None = None) -> int:
             decode_scale=args.decode_scale,
             decode_mode=args.decode_mode,
             annotate_mode=args.annotate,
-            annotate_splice_blocks=args.annotate_splice_blocks)
+            annotate_splice_blocks=args.annotate_splice_blocks,
+            link_adaptive=args.link_adaptive == "on",
+            link_healthy_h2d_mbps=args.link_healthy_mbps,
+            link_probe_period_s=args.link_probe_period,
+            link_annotate_floor_mbps=args.link_annotate_floor_mbps,
+            link_tiled_rows_below_mbps=args.link_tiled_crossover_mbps,
+            link_tiled_ab_probe=args.link_tiled_ab == "on",
+            link_tiled_ab_tie_pct=args.link_tiled_ab_tie_pct,
+            tiled_upload=args.tiled_upload,
+            tile_min_pixels=args.tile_min_pixels,
+            tile_grid=_dims(args.tile_grid))
     except ValueError as e:
         where = f" (preset {args.preset})" if args.preset else ""
         ap.error(f"{e}{where}")

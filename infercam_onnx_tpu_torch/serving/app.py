@@ -1,14 +1,12 @@
 """Server wiring (``infercam_onnx_tpu/serving/app.py``; the reference's
 infer_server binary): ingest queue, data socket, router, micro-batched
 inference worker, HTTP endpoints and meter logger as asyncio tasks in one
-process, on one device.
+process, on one device (no mesh and no lockstep dispatch).
 
-The port serves from one device: there is no mesh and no lockstep
-dispatch (ROADMAP A.7), and no link probe (``serving/link.py``, ROADMAP
-A.6): it re-routes the coefficients mode, device annotation and the tiled
-upload by thresholds measured on the TPU's host link, which the card's
-host-to-device rate has yet to re-derive; until then the worker serves
-exactly the configured modes.
+With ``link_adaptive`` the worker probes the host->device link on its
+device thread before the warm-up (which then runs the paths that will
+serve), and again every ``link_probe_period_s`` seconds where that is
+set; ``/stats`` shows the decisions under ``link`` (``serving/link.py``).
 """
 
 from __future__ import annotations
@@ -118,6 +116,11 @@ async def start_server(
 
     def warm():
         try:
+            if engine_config.link_adaptive:
+                status = worker.probe_and_adapt()
+                log.info("link probe: %.0f MB/s -> decode mode %s (%s)",
+                         status["h2d_mbps"], status["decode_mode"],
+                         status["why"])
             if warmup_resolutions:
                 log.info("warming up for %s", warmup_resolutions)
                 worker.warmup(warmup_resolutions)
@@ -144,7 +147,8 @@ async def start_server(
     data_server = await spawn_data_socket(queue, host, port)
 
     http = HttpServer(router, topology=topology(detector),
-                      warming=lambda: worker.warming)
+                      warming=lambda: worker.warming,
+                      link=lambda: worker.link_status)
     hhost, hport = _split_addr(server_config.http_address)
     await http.start(hhost, hport)
 
@@ -172,6 +176,18 @@ async def start_server(
             supervised("meter", lambda: meter_logger(
                 server_config.meter_period_s)), name="meter"),
     ]
+    if engine_config.link_adaptive and engine_config.link_probe_period_s:
+        async def link_reprobe():
+            # on the device thread, between dispatches: a recovered link
+            # restores the configured paths, a degraded one re-routes them
+            loop = asyncio.get_running_loop()
+            while True:
+                await asyncio.sleep(engine_config.link_probe_period_s)
+                await loop.run_in_executor(worker._device_exec,
+                                           worker.probe_and_adapt)
+
+        tasks.append(asyncio.create_task(
+            supervised("link-reprobe", link_reprobe), name="link-reprobe"))
     if server_config.max_rss_mb:
         tasks.append(asyncio.create_task(
             rss_watchdog(server_config.max_rss_mb,

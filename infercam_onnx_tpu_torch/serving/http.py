@@ -8,8 +8,10 @@ infer_server/src/endpoints.rs):
 - ``GET /face_stream?name=X`` -> the same over the annotated broadcast
 - ``GET /detections?name=X`` -> one NDJSON record per inferred frame
 - ``GET /snapshot?name=X[&raw=1][&timeout=S]`` -> one JPEG
-- ``GET /stats`` (JSON), ``GET /metrics`` (Prometheus text), ``GET /``
-  (a status page listing the active streams)
+- ``GET /stats`` (JSON: the meter's counters, the topology, whether the
+  warm-up runs, and ``link``, the link probe's decision table),
+  ``GET /metrics`` (Prometheus text), ``GET /`` (a status page listing
+  the active streams)
 
 ``name`` defaults to ``"unknown"``. The meter ticks once per delivered
 part per viewer. Streams run until the client disconnects; the
@@ -70,13 +72,16 @@ def _simple_response(status: str, body: bytes,
 
 class HttpServer:
     def __init__(self, router: FrameRouter, topology: dict | None = None,
-                 warming=None):
+                 warming=None, link=None):
         self._router = router
         # serving topology ({"devices", "platform", "device", "detector"})
         # shown in /stats, /metrics and the status page
         self._topology = topology
         # callable -> bool: device warm-up still running
         self._warming = warming
+        # callable -> dict | None: the link probe's verdict and the paths
+        # in effect (serving/link.py), shown in /stats
+        self._link = link
         self._server: asyncio.AbstractServer | None = None
         self._tasks: set[asyncio.Task] = set()  # live connection handlers
 
@@ -189,6 +194,10 @@ class HttpServer:
                         payload["topology"] = self._topology
                     if self._warming is not None:
                         payload["warming"] = bool(self._warming())
+                    if self._link is not None:
+                        status = self._link()
+                        if status is not None:
+                            payload["link"] = status
                     writer.write(_simple_response(
                         "200 OK", json.dumps(payload).encode(),
                         "application/json", keep_alive=keep))

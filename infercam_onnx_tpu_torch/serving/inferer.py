@@ -1,7 +1,7 @@
 """Micro-batched inference worker on one device: the port of
 ``infercam_onnx_tpu/serving/inferer.py`` for the pixels, ycbcr and
-coefficients decode modes and both annotate modes (one device: no tiling,
-no mesh and no link probe).
+coefficients decode modes, both annotate modes, tiled high-resolution
+detection and the link probe (one device: no mesh).
 
 The same shape as the JAX worker:
 
@@ -45,12 +45,33 @@ Each gather becomes units, one device program each:
 With ``annotate_mode="host"`` a viewer's frame takes the pixels path in
 every decode mode.
 
+Frames of at least ``tile_min_pixels`` pixels (after decode) tile, by the
+JAX worker's rules, through a `parallel.tiling.TiledDetector` cached per
+frame size:
+
+- a ``pixels`` unit of such frames runs `TiledDetector.run_device`; an
+  annotated one is drawn on the host (its unit's ``annotate`` is false);
+- ``ycbcr_tiled`` (stage ``"device_tiled"``): the detection-only packed
+  rows of such frames through `run_device_ycbcr_packed`;
+  ``ycbcr_tiled_rows``: the same through `run_device_ycbcr_rows` when the
+  tiled upload route is "rows", each row uploaded from a pinned tensor
+  of its own;
+- ycbcr-annotate and splice frames that would tile are pixel-decoded and
+  drawn on the host; detection-only coefficients frames do not tile.
+
+The effective decode mode, tiled upload route and annotate mode are the
+configured ones (``tiled_upload="auto"``: "rows" while a probe is due,
+else "stacked") until `probe_and_adapt` re-selects them by the measured
+link (``serving/link.py``); `_decode` reads the decode mode once a
+gather.
+
 What changes is the transfer discipline, written for a CUDA device:
 
 - **upload** (decode thread): every input array of a unit (frames, packed
-  plane rows, coefficient blocks, quant tables) is written into a fresh
-  pinned host tensor and copied to the device with ``non_blocking=True``
-  on a dedicated copy stream, which then records one event. PyTorch's
+  plane rows, coefficient blocks, quant tables; for ``ycbcr_tiled_rows``
+  each row) is written into a fresh pinned host tensor and copied to the
+  device with ``non_blocking=True`` on a dedicated copy stream, which
+  then records one event after the last copy. PyTorch's
   caching host allocator records the copy on the pinned block and hands
   the block out again only once that copy has completed, so the staging
   buffers of both directions are reused without a ring of our own. The
@@ -93,7 +114,9 @@ from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
 from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
     SUBSAMPLING_FACTORS, plane_geometry, splice_blocks, split_coefs)
+from infercam_onnx_tpu_torch.parallel.tiling import TiledDetector
 from infercam_onnx_tpu_torch.protocol import as_jpeg_stream_item
+from infercam_onnx_tpu_torch.serving import link
 from infercam_onnx_tpu_torch.serving.meter import METER
 from infercam_onnx_tpu_torch.serving.router import InferJob
 from infercam_onnx_tpu_torch.utils.profiling import STAGES
@@ -108,7 +131,8 @@ _STAGING = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int16): torch.int16,
 # the stage each unit kind's program is timed under
 _DEVICE_STAGE = {"pixels": "device", "ycbcr": "device_ycbcr",
                  "ycbcr_annot": "device_annot", "coef": "device_coef",
-                 "coef_annot": "device_annot"}
+                 "coef_annot": "device_annot", "ycbcr_tiled": "device_tiled",
+                 "ycbcr_tiled_rows": "device_tiled"}
 
 
 class InferenceWorker:
@@ -151,6 +175,96 @@ class InferenceWorker:
         self.warming = False
         # splice frames annotated on the host instead (publish thread)
         self.splice_fallbacks = 0
+        # the paths in effect until a link probe re-selects them; "auto"
+        # is "rows" while a probe is due to decide it, else "stacked"
+        self._effective_decode_mode = engine_config.decode_mode
+        self._effective_annotate_mode = engine_config.annotate_mode
+        if engine_config.tiled_upload != "auto":
+            self._effective_tiled_route = engine_config.tiled_upload
+        elif engine_config.link_adaptive:
+            self._effective_tiled_route = "rows"
+        else:
+            self._effective_tiled_route = "stacked"
+        # the last probe's verdict (/stats "link")
+        self.link_status: dict = {
+            "probed": False,
+            "configured_decode_mode": engine_config.decode_mode,
+            "decode_mode": engine_config.decode_mode,
+        }
+        # tiled detectors by decoded frame (h, w), built at first use
+        self._tiled: dict[tuple[int, int], TiledDetector] = {}
+
+    def probe_and_adapt(self, probe=None, probe_tiled=None) -> dict:
+        """Probe the host->device link and re-select every transfer-
+        sensitive path by `link.decide`: decode mode, tiled upload route,
+        annotate mode. Run it on the device thread, so that it never
+        interleaves with a dispatch; a recovered link restores the
+        configured paths. Returns the new `link_status`.
+
+        ``probe`` returns MB/s (default `link.probe_h2d_mbps` on the
+        worker's device). The tiled route also gets an A/B timing of both
+        upload routes (``probe_tiled``, default `link.probe_tiled_route_ms`)
+        when it is "auto", ``link_tiled_ab_probe`` is on and
+        ``tile_min_pixels`` is set; an injected ``probe`` without a
+        ``probe_tiled`` takes no A/B."""
+        cfg = self._cfg
+        if probe is None:
+            def probe():
+                return link.probe_h2d_mbps(device=self.device)
+            if probe_tiled is None:
+                def probe_tiled():
+                    return link.probe_tiled_route_ms(device=self.device)
+        mbps = float(probe())
+        ab = None
+        if (probe_tiled is not None and cfg.tiled_upload == "auto"
+                and cfg.link_tiled_ab_probe and cfg.tile_min_pixels):
+            stacked_ms, rows_ms = probe_tiled()
+            ab = (float(stacked_ms), float(rows_ms))
+        decisions = link.decide(cfg, mbps, tiled_ab_ms=ab)
+        for label, attr, key in (
+                ("decode mode", "_effective_decode_mode", "decode_mode"),
+                ("tiled upload", "_effective_tiled_route", "tiled_upload"),
+                ("annotate mode", "_effective_annotate_mode",
+                 "annotate_mode")):
+            new = decisions[key]["effective"]
+            if new != getattr(self, attr):
+                log.warning("link-adaptive: %s %s -> %s (%s)", label,
+                            getattr(self, attr), new, decisions[key]["why"])
+            setattr(self, attr, new)
+        self.link_status = {
+            "probed": True,
+            "h2d_mbps": round(mbps, 1),
+            "healthy_mbps": cfg.link_healthy_h2d_mbps,
+            "degraded": mbps < cfg.link_healthy_h2d_mbps,
+            "configured_decode_mode": cfg.decode_mode,
+            "decode_mode": decisions["decode_mode"]["effective"],
+            "why": decisions["decode_mode"]["why"],
+            "decisions": decisions,
+            "tiled_ab_ms": (None if ab is None else
+                            {"stacked": round(ab[0], 1),
+                             "rows": round(ab[1], 1)}),
+        }
+        return self.link_status
+
+    @property
+    def _annotate_device_active(self) -> bool:
+        """Device annotation configured and kept by the last probe."""
+        return (self._annotate_device
+                and self._effective_annotate_mode == "device")
+
+    def _is_tiled(self, w: int, h: int) -> bool:
+        """Whether a decoded w x h frame gets its detections from the tile
+        grid (every call site shares this threshold)."""
+        return bool(self._cfg.tile_min_pixels
+                    and w * h >= self._cfg.tile_min_pixels)
+
+    def _get_tiled(self, w: int, h: int) -> TiledDetector:
+        tiled = self._tiled.get((h, w))
+        if tiled is None:
+            tiled = self._tiled[(h, w)] = TiledDetector(
+                self._detector, (w, h), grid=self._cfg.tile_grid,
+                overlap=self._cfg.tile_overlap)
+        return tiled
 
     def _bind_device(self) -> None:
         if self.device.type == "cuda":
@@ -249,12 +363,13 @@ class InferenceWorker:
         kinds). A frame nothing can decode is dropped and counted, not
         fatal."""
         scale = self._cfg.decode_scale
-        mode = self._cfg.decode_mode
+        mode = self._effective_decode_mode  # one read a gather
+        annotate_device = self._annotate_device_active
         # in ycbcr and coefficients modes a viewer's frame rides the
         # device annotate tail when annotating on the device
         device_tail = mode != "pixels"
         annot = [j for j in jobs if j.reply is not None
-                 and self._annotate_device and device_tail]
+                 and annotate_device and device_tail]
         pixel_jobs = [j for j in jobs if j not in annot
                       and (j.reply is not None or not device_tail)]
         plain = [j for j in jobs if j.reply is None and device_tail]
@@ -280,23 +395,39 @@ class InferenceWorker:
                         pixel_decode(job, None)
             decode = (self._decode_ycbcr if mode == "ycbcr"
                       else self._decode_coefficients)
+            base = "coef" if mode == "coefficients" else "ycbcr"
             for kind, chosen in (("", plain), ("_annot", annot)):
-                if chosen:
-                    groups.extend((("coef" if mode == "coefficients"
-                                    else "ycbcr") + kind, members, geom)
-                                  for members, geom in
-                                  decode(chosen, pixel_decode))
+                for members, geom in (decode(chosen, pixel_decode)
+                                      if chosen else ()):
+                    w, h = ((geom["width"], geom["height"]) if geom
+                            else members[0][1][4])  # coefficients: wh
+                    if not self._is_tiled(w, h):
+                        groups.append((base + kind, members, geom))
+                    elif kind == "_annot":
+                        # its detections must come from the tile grid:
+                        # pixel-decode it and draw on the host
+                        for job, _ in members:
+                            pixel_decode(job, "tiled stream: host annotate")
+                    elif base == "ycbcr":
+                        groups.append((
+                            "ycbcr_tiled_rows"
+                            if self._effective_tiled_route == "rows"
+                            else "ycbcr_tiled", members, geom))
+                    else:  # detection-only coefficients do not tile
+                        groups.append((base, members, geom))
 
         units: list[dict] = []
         with STAGES.stage("upload"):
             by_shape: dict[tuple, list] = {}
             for job, frame in frames:
-                needs_annot = self._annotate_device and job.reply is not None
+                needs_annot = annotate_device and job.reply is not None
                 by_shape.setdefault((frame.shape[:2], needs_annot),
                                     []).append((job, frame))
-            for (_, needs_annot), members in by_shape.items():
-                units.append(self._unit("pixels", members,
-                                        annotate=needs_annot))
+            for ((h, w), needs_annot), members in by_shape.items():
+                # a frame that tiles is annotated on the host
+                units.append(self._unit(
+                    "pixels", members,
+                    annotate=needs_annot and not self._is_tiled(w, h)))
             units.extend(self._unit(kind, members, geom)
                          for kind, members, geom in groups)
         return units
@@ -349,7 +480,8 @@ class InferenceWorker:
         """One padded batch of ``members`` (job, frame | packed row |
         coefficient planes), uploading: the device stage's work item.
         ``batch`` is the uploaded tensor, for coefficient kinds the tuple
-        of them; ``geom`` the packed rows' geometry (ycbcr kinds)."""
+        of them, for ``ycbcr_tiled_rows`` the tuple of its [n] rows;
+        ``geom`` the packed rows' geometry (ycbcr kinds)."""
         bucket = self._bucket_size(len(members))
         extra = len(members) - bucket
         if extra > 0:
@@ -388,25 +520,35 @@ class InferenceWorker:
             # packed rows and coefficients carry no frame to draw on
             unit["members"] = [(job, None if kind != "coef_annot" else r)
                                for job, r in members]
-        batch, unit["ready"] = self._upload(columns, bucket)
+        if kind == "ycbcr_tiled_rows":
+            # one pinned tensor and one copy a row, padding rows included
+            pad = [np.zeros_like(rows[0])] * (bucket - len(rows))
+            batch, unit["ready"] = self._to_device(
+                [self._staged([r], 0, 1)[0] for r in rows + pad])
+            unit["batch"] = tuple(batch)
+            return unit
+        batch, unit["ready"] = self._to_device(
+            [self._staged(col, fill, bucket) for col, fill in columns])
         unit["batch"] = batch[0] if len(batch) == 1 else tuple(batch)
         return unit
 
-    def _upload(self, columns: list[tuple[list[np.ndarray], int]],
-                bucket: int) -> tuple[list[torch.Tensor],
-                                      torch.cuda.Event | None]:
-        """Each (rows, fill) column as a [bucket, *row shape] tensor on the
-        device, its rows after ``len(rows)`` set to ``fill``, and the one
-        event after which all of them are there (None on the CPU)."""
-        hosts = []
-        for rows, fill in columns:
-            host = torch.empty((bucket, *rows[0].shape),
-                               dtype=_STAGING[rows[0].dtype],
-                               pin_memory=self._copy_stream is not None)
-            view = host.numpy()
-            view[:len(rows)] = rows
-            view[len(rows):] = fill
-            hosts.append(host)
+    def _staged(self, rows: list[np.ndarray], fill, bucket: int
+                ) -> torch.Tensor:
+        """``rows`` as a [bucket, *row shape] host tensor (pinned for a
+        CUDA device), its rows after ``len(rows)`` set to ``fill``."""
+        host = torch.empty((bucket, *rows[0].shape),
+                           dtype=_STAGING[rows[0].dtype],
+                           pin_memory=self._copy_stream is not None)
+        view = host.numpy()
+        view[:len(rows)] = rows
+        view[len(rows):] = fill
+        return host
+
+    def _to_device(self, hosts: list[torch.Tensor]
+                   ) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
+        """``hosts`` on the device, and the one event after which all of
+        them are there (None on the CPU, where they are used as they
+        are)."""
         if self._copy_stream is None:
             return hosts, None
         with torch.cuda.stream(self._copy_stream):
@@ -452,8 +594,16 @@ class InferenceWorker:
             return det.run_device_annotated(
                 batch, quality=srv.jpeg_quality,
                 subsampling=srv.jpeg_subsampling, disp_dims=dims)
+        if kind == "pixels" and self._is_tiled(unit["w"], unit["h"]):
+            return self._get_tiled(unit["w"], unit["h"]).run_device(
+                batch, pack_output=True)
         if kind == "pixels":
             return det.run_device(batch, pack_output=True)
+        if kind in ("ycbcr_tiled", "ycbcr_tiled_rows"):
+            tiled = self._get_tiled(unit["w"], unit["h"])
+            run = (tiled.run_device_ycbcr_rows if kind == "ycbcr_tiled_rows"
+                   else tiled.run_device_ycbcr_packed)
+            return run(batch, unit["geom"], pack_output=True)
         if kind == "ycbcr":
             return det.run_device_ycbcr_packed(batch, unit["geom"],
                                                pack_output=True)
@@ -600,27 +750,42 @@ class InferenceWorker:
         resize matrices are done before traffic: detection, the annotated
         program of the decode mode when annotating on the device, and in
         the ycbcr and coefficients modes their programs on a 4:2:0 probe
-        JPEG of each resolution. `serving.app` runs it on the device
-        thread."""
+        JPEG of each resolution. At a resolution that tiles, the tiled
+        programs stand in for detection and no annotated program runs
+        (such frames are drawn on the host), as in serving; detection-only
+        coefficients keep their untiled program. The modes are the
+        effective ones, so a probe first warms what will serve.
+        `serving.app` runs it on the device thread."""
         det, srv = self._detector, self._server_cfg
-        s, mode = self._cfg.decode_scale, self._cfg.decode_mode
+        s, mode = self._cfg.decode_scale, self._effective_decode_mode
+        annotate_device = self._annotate_device_active
         dims = srv.assume_frame_dims
         for (h, w) in resolutions or [(480, 640)]:
             probe = codec.encode_rgb(np.zeros((h, w, 3), np.uint8), 90,
                                      "420")
+            tiled = (self._get_tiled(w // s, h // s)
+                     if self._is_tiled(w // s, h // s) else None)
             for b in self._buckets:
-                det.warmup(b, h // s, w // s)
-                if self._annotate_device and mode == "pixels":
+                frames = np.zeros((b, h // s, w // s, 3), np.uint8)
+                if tiled is not None:
+                    tiled.run_device(frames, pack_output=True)
+                else:
+                    det.warmup(b, h // s, w // s)
+                if annotate_device and mode == "pixels" and tiled is None:
                     det.run_device_annotated(
-                        np.zeros((b, h // s, w // s, 3), np.uint8),
-                        quality=srv.jpeg_quality,
+                        frames, quality=srv.jpeg_quality,
                         subsampling=srv.jpeg_subsampling, disp_dims=dims)
                 if mode == "ycbcr":
                     packed, geom = native_jpeg.load().decode_ycbcr_batch(
                         [probe] * b, scale=s)
-                    det.run_device_ycbcr_packed(packed, geom,
-                                                pack_output=True)
-                    if self._annotate_device:
+                    gw, gh = geom["width"], geom["height"]
+                    if self._is_tiled(gw, gh):
+                        self._get_tiled(gw, gh).run_device_ycbcr_packed(
+                            packed, geom, pack_output=True)
+                    else:
+                        det.run_device_ycbcr_packed(packed, geom,
+                                                    pack_output=True)
+                    if annotate_device and not self._is_tiled(gw, gh):
                         det.run_device_ycbcr_annotated(
                             packed, geom, quality=srv.jpeg_quality,
                             disp_dims=dims)
@@ -629,7 +794,7 @@ class InferenceWorker:
                         [probe] * b)
                     det.run_device_coefficients_arrays(
                         y, cb, cr, q, wh, sampling=samp, pack_output=True)
-                    if self._annotate_device:
+                    if annotate_device and not self._is_tiled(*wh):
                         det.run_device_coefficients_annotated(
                             y, cb, cr, q, wh, sampling=samp,
                             k=self._cfg.annotate_splice_blocks,

@@ -1,6 +1,7 @@
 """The hand CUDA kernels against their plain versions, the packed-YCbCr
-decode tail, the annotated and coefficient programs against the CPU, and
-the serving worker's stream-ordered transfers, on the card.
+decode tail, the annotated and coefficient programs against the CPU, the
+serving worker's stream-ordered transfers, and the tiled programs (one
+NMS launch a call, kernel = scan, rows = packed), on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -501,3 +502,64 @@ def test_annotate_and_coefficient_programs_on_cuda_match_cpu(cuda, program):
     finally:
         matmul.fp32_precision, conv.fp32_precision = saved
     assert all(torch.equal(a, b) for a, b in zip(tf32, got))
+
+
+# -- tiled high-resolution detection ------------------------------------------
+
+
+def _hd_jpegs(width: int, height: int, n: int = 4) -> list[bytes]:
+    """n quality-90 4:2:0 JPEGs of the synthetic pictures, plain and
+    mirrored, resized to width x height."""
+    from infercam_onnx_tpu_torch import codec
+
+    pics = list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic"),
+        resize=(width, height)).values())
+    frames = pics + [np.ascontiguousarray(p[:, ::-1]) for p in pics]
+    return [codec.encode_rgb(frames[i % len(frames)], 90, "420")
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("size", [(1920, 1080), (960, 540)])
+def test_tiled_programs_kernel_equals_scan_and_rows_equal_packed(cuda, size):
+    """RFB-320 bf16 on the frozen weights, a 2x2 grid: each tiled program
+    launches the NMS kernel once, its packed output equals the same
+    program with the plain scan bit for bit, and the rows program (one
+    device tensor a frame) equals the packed one bit for bit."""
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.parallel import tiling
+
+    jpegs = _hd_jpegs(*size)
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    tiled = tiling.TiledDetector(det, size, grid=(2, 2), overlap=0.2)
+    frames = torch.from_numpy(np.stack(codec.decode_batch(jpegs))).to(cuda)
+    packed, geom = native_jpeg.load().decode_ycbcr_batch(jpegs)
+    packed_dev = torch.from_numpy(np.array(packed)).to(cuda)
+    rows = [torch.from_numpy(np.array(r)).to(cuda) for r in packed]
+    kw = dict(tiles=tiled.tiles, **det._thresholds())
+    r_h, r_w = tiled._r_h, tiled._r_w
+    geo = {k: geom[k] for k in ("width", "height", "y_pw", "y_ph", "c_pw",
+                                "c_ph")}
+    outs = {}
+    for name, call in (
+            ("pixels", lambda: tiled.run_device(frames, pack_output=True)),
+            ("ycbcr", lambda: tiled.run_device_ycbcr_packed(
+                packed_dev, geom, pack_output=True)),
+            ("rows", lambda: tiled.run_device_ycbcr_rows(
+                rows, geom, pack_output=True))):
+        before = nms.kernel.launches
+        outs[name] = call()
+        torch.cuda.synchronize()
+        assert nms.kernel.launches == before + 1, name
+    scan_pixels = tiling.tiled_detect_program(
+        det.model, det.priors, frames, r_h, r_w, pack_output=True,
+        nms_impl="scan", **kw)
+    scan_ycbcr = tiling.tiled_detect_from_ycbcr_program(
+        det.model, det.priors, packed_dev, r_h, r_w, pack_output=True,
+        nms_impl="scan", sampling=tuple(geom["sampling"]), **geo, **kw)
+    assert torch.equal(outs["pixels"], scan_pixels)
+    assert torch.equal(outs["ycbcr"], scan_ycbcr)
+    assert torch.equal(outs["rows"], outs["ycbcr"])
+    assert int(outs["pixels"][..., 5].sum()) >= 4

@@ -20,6 +20,12 @@ In ``decode_mode="ycbcr"`` a published record must equal
 ``Detector.run_device_ycbcr_packed`` on the batch the worker dispatched,
 exactly (the same CPU program on the same rows), and that batch must hold
 the shim's packed rows; a /face_stream stream keeps the pixels path.
+
+Tiled serving (frames of at least ``tile_min_pixels``, here the synthetic
+pictures at 480x270): the records must equal JAX ``TiledDetector``'s on
+the same frames (pixels units) or packed planes (``ycbcr_tiled`` and
+``ycbcr_tiled_rows`` units) within the same tolerances, and a tiled
+frame's annotated part must be the host's draw + encode of its record.
 """
 
 import asyncio
@@ -30,6 +36,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from infercam_onnx_tpu import codec as jcodec
@@ -241,7 +248,7 @@ def test_engine_defaults_and_bad_values():
 
 @pytest.mark.parametrize("argv", [
     ["--onnx", "m.onnx"], ["--data-parallel", "on"],
-    ["--tile-min-pixels", "1000000"],
+    ["--lockstep-address", "127.0.0.1:1"],
 ])
 def test_serve_cli_refuses_unported_paths(argv, capsys):
     with pytest.raises(SystemExit) as exc:
@@ -258,11 +265,20 @@ def test_serve_cli_refuses_unported_paths(argv, capsys):
     ["--decode-mode", "coefficients"], ["--annotate", "device"],
     ["--annotate", "host"],
     ["--decode-mode", "coefficients", "--annotate-splice-blocks", "64"],
+    ["--tile-min-pixels", "921600", "--tile-grid", "2x2",
+     "--decode-mode", "ycbcr"],
+    ["--tile-min-pixels", "1000000", "--tile-grid", "3x2",
+     "--tiled-upload", "rows", "--preset", "throughput"],
+    ["--tiled-upload", "stacked", "--link-adaptive", "off"],
+    ["--link-healthy-mbps", "1000", "--link-probe-period", "30",
+     "--link-annotate-floor-mbps", "20", "--link-tiled-crossover-mbps",
+     "80", "--link-tiled-ab", "off", "--link-tiled-ab-tie-pct", "5"],
 ])
 def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
-    """Every decode and annotate mode and the three tuned presets run:
-    each argv gives the server the EngineConfig fields, warm-up
-    resolutions and warm-up mode the JAX CLI gives its own."""
+    """Every decode and annotate mode, tiling, the link policy's flags and
+    the three tuned presets run: each argv gives the server the
+    EngineConfig fields, warm-up resolutions and warm-up mode the JAX CLI
+    gives its own."""
     from infercam_onnx_tpu.serving import app as japp
     from infercam_onnx_tpu.utils import cache as jcache
     from infercam_onnx_tpu_torch.serving import app as tapp
@@ -285,7 +301,12 @@ def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
     port_cfg, jax_cfg = got["engine_config"], want["engine_config"]
     for field in ("batch_buckets", "queue_capacity", "batch_window_ms",
                   "coalesce_streams", "decode_scale", "decode_mode",
-                  "annotate_mode", "annotate_splice_blocks"):
+                  "annotate_mode", "annotate_splice_blocks", "link_adaptive",
+                  "link_healthy_h2d_mbps", "link_probe_period_s",
+                  "link_annotate_floor_mbps", "link_tiled_rows_below_mbps",
+                  "link_tiled_ab_probe", "link_tiled_ab_tie_pct",
+                  "tiled_upload", "tile_min_pixels", "tile_grid",
+                  "tile_overlap"):
         assert getattr(port_cfg, field) == getattr(jax_cfg, field), field
     assert port_cfg.annotate_mode == ("host" if "host" in argv
                                       else "device")
@@ -728,6 +749,194 @@ def test_ycbcr_server_drops_and_counts_a_corrupt_frame(detector):
     assert [(r["width"], r["height"]) for r in records] == [(64, 48),
                                                            (640, 480)]
     assert [u["geom"] is None for u in units] == [True, False]
+
+
+TILED = (480, 270)  # the tiled tests' frames, (width, height)
+TILE_MIN = TILED[0] * TILED[1]  # they tile
+
+
+@pytest.fixture(scope="module")
+def jax_tiled():
+    """The synthetic pictures resized to 480x270 and JPEG-encoded, and JAX
+    TiledDetector (float32, the frozen weights, 2x2 at overlap 0.2) on
+    them: (jpeg bytes, decoded frames, packed outputs of the pixels
+    program, packed outputs of the packed YCbCr program on each JPEG's own
+    planes). At this size the two packages' resize of the 267x150 tiles
+    gives equal u8 levels (at 640x480, 356x267 tiles, C.2's edge-tap
+    levels differ)."""
+    from infercam_onnx_tpu.parallel.tiling import TiledDetector as JTiled
+
+    from infercam_onnx_tpu_torch.eval.goldens import load_directory_frames
+
+    datas = [codec.encode_rgb(f) for f in load_directory_frames(
+        str(SYNTH_PICS), resize=TILED).values()]
+    frames = [codec.decode_rgb(d) for d in datas]
+    params = jconvert.params_from_state_dict(dict(np.load(WEIGHTS)))
+    tiled = JTiled(JDetector(JDetectorConfig(compute_dtype="float32"),
+                             params=params), TILED, grid=(2, 2))
+    pixels = np.asarray(tiled.run_device(np.stack(frames), pack_output=True))
+    ycbcr = np.concatenate([np.asarray(tiled.run_device_ycbcr_packed(
+        *native_jpeg.load().decode_ycbcr_batch([d]), pack_output=True))
+        for d in datas])
+    return datas, frames, pixels, ycbcr
+
+
+def _assert_records_close(records, want):
+    """NDJSON records against packed [B, D, 6] rows: counts equal, boxes
+    within 1e-5, confidences within 5e-5."""
+    assert len(records) == len(want)
+    for rec, row in zip(records, want):
+        n = int(row[:, 5].sum())
+        assert len(rec["detections"]) == n
+        if n:
+            np.testing.assert_allclose([d["bbox"] for d in rec["detections"]],
+                                       row[:n, :4], rtol=0, atol=1e-5)
+            np.testing.assert_allclose(
+                [d["confidence"] for d in rec["detections"]], row[:n, 4],
+                rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("decode_mode", ["pixels", "ycbcr", "coefficients"])
+def test_tiled_viewer_frames_match_jax_and_are_host_drawn(detector,
+                                                          jax_tiled,
+                                                          decode_mode):
+    """Frames at the tiling threshold with a /face_stream viewer, device
+    annotation configured: in every decode mode they take a pixels unit
+    through TiledDetector.run_device with annotate off, their records are
+    JAX TiledDetector's on the same frames, and each annotated part is the
+    host's draw + encode of its record."""
+    datas, frames, want, _ = jax_tiled
+
+    async def run():
+        async with _serving(detector, decode_mode=decode_mode,
+                            tile_min_pixels=TILE_MIN) as server:
+            units = _tap_units(server)
+            port = server.http_port
+            dets = await _Viewer.open(port, "/detections?name=t")
+            faces = await _Viewer.open(port, "/face_stream?name=t")
+            await _until(lambda: _subscribed(server, "t", "detections")
+                         and _subscribed(server, "t"), desc="viewers")
+            source = _GatedSource(datas, lambda i: (
+                len(dets.records()) >= i and len(faces.parts()) >= i))
+            await send_stream(source, ClientConfig(
+                address=f"127.0.0.1:{server.socket_port}", channel="t"))
+            await dets.wait(lambda v: len(v.records()) == len(datas))
+            await faces.wait(lambda v: len(v.parts()) == len(datas))
+            await dets.close()
+            await faces.close()
+            return units, dets.records(), faces.parts(), server.worker
+
+    units, records, parts, worker = asyncio.run(run())
+    assert [(u["kind"], u["annotate"], u["n"]) for u in units] == [
+        ("pixels", False, 1)] * len(datas)
+    assert set(worker._tiled) == {TILED[::-1]}
+    _assert_records_close(records, want)
+    assert sum(len(r["detections"]) for r in records) >= 10
+    for rec, frame, part in zip(records, frames, parts):
+        assert (rec["width"], rec["height"]) == TILED
+        drawn = tdraw.draw_detections(frame, [
+            (np.array(d["bbox"], np.float32), d["confidence"])
+            for d in rec["detections"]])
+        assert part == codec.encode_rgb(drawn)
+
+
+@pytest.mark.parametrize("route", ["stacked", "rows"])
+def test_ycbcr_tiled_units_match_jax(detector, jax_tiled, route):
+    """Detection-only frames at the threshold in ycbcr mode take the
+    ycbcr_tiled unit (route "stacked") or ycbcr_tiled_rows (one uploaded
+    row a frame): their records equal the port's tiled program on the
+    dispatched batch exactly, and JAX TiledDetector's packed-YCbCr program
+    on the same planes within the detector tolerances."""
+    datas, _, _, want = jax_tiled
+
+    async def run():
+        async with _serving(detector, decode_mode="ycbcr",
+                            tile_min_pixels=TILE_MIN,
+                            tiled_upload=route) as server:
+            units = _tap_units(server)
+            dets = await _Viewer.open(server.http_port, "/detections?name=y")
+            await _until(lambda: _subscribed(server, "y", "detections"),
+                         desc="viewer")
+            source = _GatedSource(datas, lambda i: len(dets.records()) >= i)
+            await send_stream(source, ClientConfig(
+                address=f"127.0.0.1:{server.socket_port}", channel="y"))
+            await dets.wait(lambda v: len(v.records()) == len(datas))
+            await dets.close()
+            return units, dets.records(), server.worker
+
+    units, records, worker = asyncio.run(run())
+    kind = "ycbcr_tiled" if route == "stacked" else "ycbcr_tiled_rows"
+    assert [u["kind"] for u in units] == [kind] * len(datas)
+    assert worker._effective_tiled_route == route
+    tiled = worker._tiled[TILED[::-1]]
+    for unit, rec, data in zip(units, records, datas):
+        packed, geom = native_jpeg.load().decode_ycbcr_batch([data])
+        assert unit["geom"] == geom
+        if route == "rows":
+            assert isinstance(unit["batch"], tuple)
+            assert [r.shape for r in unit["batch"]] == [packed[0].shape]
+            mine = tiled.run_device_ycbcr_rows(unit["batch"], geom,
+                                               pack_output=True)
+            batch = torch.stack(unit["batch"])
+        else:
+            batch = unit["batch"]
+            mine = tiled.run_device_ycbcr_packed(batch, geom,
+                                                 pack_output=True)
+        np.testing.assert_array_equal(batch.numpy(), packed)
+        assert rec["detections"] == _detections_of(mine.numpy()[0])
+    _assert_records_close(records, want)
+    assert sum(len(r["detections"]) for r in records) >= 10
+
+
+def test_coefficients_detection_frames_do_not_tile(detector):
+    """Detection-only coefficients frames at the threshold keep the
+    untiled coef unit, as in the JAX worker."""
+    datas = [p.read_bytes() for p in sorted(SYNTH_PICS.glob("*.jpg"))]
+
+    async def run():
+        async with _serving(detector, decode_mode="coefficients",
+                            tile_min_pixels=TILE_MIN) as server:
+            units = _tap_units(server)
+            dets = await _Viewer.open(server.http_port, "/detections?name=c")
+            await _until(lambda: _subscribed(server, "c", "detections"),
+                         desc="viewer")
+            source = _GatedSource(datas, lambda i: len(dets.records()) >= i)
+            await send_stream(source, ClientConfig(
+                address=f"127.0.0.1:{server.socket_port}", channel="c"))
+            await dets.wait(lambda v: len(v.records()) == len(datas))
+            await dets.close()
+            return units, dets.records(), server.worker
+
+    units, records, worker = asyncio.run(run())
+    assert [u["kind"] for u in units] == ["coef"] * len(datas)
+    assert worker._tiled == {}
+    for unit, rec in zip(units, records):
+        want = detector.run_device_coefficients_arrays(
+            *unit["batch"], (unit["w"], unit["h"]),
+            sampling=unit["sampling"], pack_output=True).numpy()
+        assert rec["detections"] == _detections_of(want[0])
+    assert sum(len(r["detections"]) for r in records) >= 10
+
+
+def test_stats_show_the_link_decisions(detector):
+    """/stats "link" holds the start-up probe's reading on the CPU, the
+    A/B pair (tiling is on) and the decision table; the configured paths
+    are kept on a healthy link."""
+    async def run():
+        async with _serving(detector, tile_min_pixels=TILE_MIN) as server:
+            viewer = await _Viewer.open(server.http_port, "/stats")
+            return json.loads((await viewer.finish()).split(b"\r\n\r\n",
+                                                             1)[1])
+
+    link = asyncio.run(run())["link"]
+    assert link["probed"] is True and link["h2d_mbps"] > 0
+    assert set(link["tiled_ab_ms"]) == {"stacked", "rows"}
+    decisions = link["decisions"]
+    assert set(decisions) == {"decode_mode", "tiled_upload", "annotate_mode"}
+    assert [decisions[k]["configured"] for k in sorted(decisions)] == [
+        "device", "pixels", "auto"]
+    assert decisions["decode_mode"]["effective"] == "pixels"  # never moved
+    assert decisions["tiled_upload"]["effective"] in ("rows", "stacked")
 
 
 def test_submit_queue_drops_when_full(detector):
