@@ -83,6 +83,19 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    probe_tiled_route_ms at its default geometry and at a batch of 16
    1080p frames' packed planes) and the decision tables of the default
    EngineConfig and of coefficients decode with device annotation;
+4g. sharded_path: ShardedDetector (RFB-320, bf16 and float32, frozen
+   weights) on the 16 640x480 frames of 4b, every program of Detector on
+   card-resident inputs: over [cuda:0] bit-identical to Detector, one NMS
+   launch a call; over [cuda:0, cuda:0] (two replicas, four streams, one
+   card) bit-identical to Detector on each shard's 8 rows concatenated,
+   two NMS launches a call, and in float32 within ROADMAP C.3 (counts
+   equal, boxes 1e-5, confidences 5e-5) of the 16-row call. The tiled
+   mesh modes over the two replicas on the 1080p JPEGs of 4e (pixels and
+   packed planes): batch_sharded_out two NMS launches a call and
+   bit-identical to the plain TiledDetector on each shard's 8 frames; the
+   default mode (32 of the 64 tiles a replica) one launch a call, in
+   float32 within C.3 of the plain TiledDetector. ms a batch in turns
+   (plain B=16, 1 x 16, 2 x 8) and the host ms a call;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -116,6 +129,17 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    1920x1080, and NMS launches must equal batches.
    Every serve phase runs with link_adaptive on, records /stats "link",
    and fails if the probe moved its decode or annotate mode;
+5e. serve_lockstep: the card's compute mode (an exclusive-process card
+   fails the phase), then ``cluster_launch.py --no-supervise``: two serve
+   processes on cuda:0 in one gloo group with lockstep dispatch (RFB-320
+   float32, frozen weights, pixels decode, host annotation), each fed by a
+   load generator of its own (2 senders x 30 fps of the synthetic 640x480
+   JPEGs) for 1 s and then a 10 s window. Each member must serve both its
+   streams; every published record must equal the plain float32 detector
+   on one of the four pictures by C.3; each member's NMS launches must
+   equal its dispatches, padding rounds included. It reports each
+   member's frames/s, drops, e2e p50/p99 (over the meter's 2 s windows)
+   and member 0's coordinator rounds;
 6. the whole run's seconds, the kernels line, the nvidia-smi line, and
    the final status line.
 
@@ -132,6 +156,7 @@ from __future__ import annotations
 import collections
 import json
 import pathlib
+import signal
 import subprocess
 import sys
 import tempfile
@@ -964,7 +989,8 @@ def annotate_path(device, jpegs: list[bytes]) -> dict:
 
     from infercam_onnx_tpu_torch import codec
     from infercam_onnx_tpu_torch.config import DetectorConfig
-    from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
+    from infercam_onnx_tpu_torch.detector import (Detector, _encode_quant,
+                                                  unpack_detections)
     from infercam_onnx_tpu_torch.draw import draw_detections
     from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
     from infercam_onnx_tpu_torch.ops import nms
@@ -1022,7 +1048,7 @@ def annotate_path(device, jpegs: list[bytes]) -> dict:
         def tail(tail_planes=tail_planes, pdet=pdet):
             drawn = enc.render_overlay_ycbcr(*tail_planes(), pdet, width=640,
                                              height=480, sampling=(2, 2))
-            return enc.encode_planes(*drawn, det._encode_quant(95))
+            return enc.encode_planes(*drawn, _encode_quant(95, device))
 
         tail_prof = profile_device(tail, 10)
         prof = profile_device(annotated, 10)
@@ -1454,6 +1480,246 @@ def link_probe(device) -> dict:
                 "default": link.decide(EngineConfig(), mbps[0]),
                 "coefficients_device_annotate": link.decide(
                     coef, mbps[0], tiled_ab_ms=ab[0])}}
+
+
+# -- phase 4g: data-parallel replicas ----------------------------------------
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def outputs_equal(got, want) -> bool:
+    got, want = _outputs(got), _outputs(want)
+    import torch
+
+    return len(got) == len(want) and all(torch.equal(g, w)
+                                         for g, w in zip(got, want))
+
+
+def concat_outputs(parts: list):
+    """Per-output concatenation of several calls' outputs."""
+    import torch
+
+    cols = [torch.cat(c) for c in zip(*(_outputs(p) for p in parts))]
+    return cols[0] if len(cols) == 1 else tuple(cols)
+
+
+def within_c3(agreement: dict) -> bool:
+    """ROADMAP C.3: counts equal, boxes within 1e-5, confidences 5e-5."""
+    return (agreement["counts_equal"] and agreement["max_box_diff"] <= 1e-5
+            and agreement["max_conf_diff"] <= 5e-5)
+
+
+def host_call_ms(fn, reps: int = 20) -> float:
+    """Median host ms the calling thread spends in ``fn()`` (the enqueue
+    of its launches), the card idle before each call."""
+    import statistics
+
+    import torch
+
+    fn()
+    samples = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
+def replica_programs(device, jpegs: list[bytes]) -> dict:
+    """Every program of Detector as ``prog(detector, rows)`` on
+    device-resident inputs made from ``jpegs`` (rows: a slice of the
+    batch)."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.detector import pack_coefficient_batch
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
+
+    shim = native_jpeg.load()
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    frames = on_card(np.stack(shim.decode_batch(jpegs)))
+    packed, geom = shim.decode_ycbcr_batch(jpegs)
+    packed = on_card(packed)
+    y, cb, cr, quant, wh, samp = read_coefficient_batch(jpegs)
+    packed12, _, shapes = pack_coefficient_batch(y, cb, cr, quant)
+    y, cb, cr, quant, packed12 = (on_card(a) for a in (
+        y, cb, cr, quant.astype(np.int32), packed12))
+    return {
+        "detect_program": lambda d, r: d.run_device(frames[r],
+                                                    pack_output=True),
+        "detect_program_tuple": lambda d, r: d.run_device(frames[r]),
+        "detect_from_ycbcr": lambda d, r: d.run_device_ycbcr_packed(
+            packed[r], geom, pack_output=True),
+        "detect_from_coefficients": (
+            lambda d, r: d.run_device_coefficients_arrays(
+                y[r], cb[r], cr[r], quant[r], wh, sampling=samp,
+                pack_output=True)),
+        "detect_annotate": lambda d, r: d.run_device_annotated(frames[r]),
+        "detect_annotate_from_ycbcr": (
+            lambda d, r: d.run_device_ycbcr_annotated(packed[r], geom)),
+        "detect_annotate_splice": (
+            lambda d, r: d.run_device_coefficients_annotated_packed(
+                packed12[r], quant[r], wh=wh, shapes=shapes, sampling=samp,
+                k=SPLICE_K)),
+    }
+
+
+def sharded_path(device, jpegs: list[bytes], hd: list[bytes]) -> dict:
+    """ShardedDetector (RFB-320 bf16, frozen weights) over [device] and
+    over [device, device] (two replicas, four streams, one card) on every
+    program: one replica bit-identical to Detector; two replicas
+    bit-identical to Detector on each shard's 8 rows, concatenated
+    (a batch of 16 may choose other cuDNN algorithms than 8), and in
+    float32 within C.3 of the 16-row call; NMS launches a call. The tiled
+    mesh modes on the 1080p ``hd`` frames: batch_sharded_out bit-identical
+    to the plain TiledDetector on each shard's 8 frames, the default mode
+    (the 64 tiles split 32 a replica) in float32 within C.3 of the plain
+    TiledDetector. ms a batch in turns and host ms a call."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.parallel import (ShardedDetector,
+                                                  TiledDetector)
+
+    rows, halves = slice(None), (slice(0, 8), slice(8, 16))
+    progs = replica_programs(device, jpegs)
+    out = {"batch": len(jpegs), "frame": [640, 480], "by_program": {}}
+
+    def launches_of(call):
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        result = call()
+        torch.cuda.synchronize()
+        return result, nms.kernel.launches
+
+    for dtype in ("bfloat16", "float32"):
+        det = Detector(DetectorConfig(compute_dtype=dtype),
+                       weights=str(WEIGHTS), device=device)
+        one = ShardedDetector(det, [device])
+        two = ShardedDetector(det, [device, device])
+        for name, prog in progs.items():
+            for r in (rows, halves[0]):  # the cuDNN choices at 16 and 8
+                prog(det, r)
+            plain = prog(det, rows)
+            got_one, l_one = launches_of(lambda: prog(one, rows))
+            got_two, l_two = launches_of(lambda: prog(two, rows))
+            want_two = concat_outputs([prog(det, h) for h in halves])
+            rec = out["by_program"].setdefault(name, {})
+            rec[dtype] = {
+                "launches_one_replica": l_one,
+                "launches_two_replicas": l_two,
+                "one_replica_identical": outputs_equal(got_one, plain),
+                "two_replicas_identical_per_shard": outputs_equal(got_two,
+                                                                  want_two),
+                "two_replicas_vs_b16": detections_agreement(
+                    _packed(got_two, name), _packed(plain, name)),
+            }
+        if dtype == "bfloat16":
+            frames_dev = torch.from_numpy(np.stack(
+                native_jpeg.load().decode_batch(jpegs))).to(device)
+            calls = {"plain_b16": lambda: det.run_device(frames_dev,
+                                                         pack_output=True),
+                     "sharded_1x16": lambda: one.run_device(
+                         frames_dev, pack_output=True),
+                     "sharded_2x8": lambda: two.run_device(
+                         frames_dev, pack_output=True)}
+            out["ms_per_batch_in_turns"] = in_turns(calls)
+            out["host_ms_per_call"] = {n: host_call_ms(c)
+                                       for n, c in calls.items()}
+            out["tiled"] = tiled_mesh_modes(det, two, hd)
+        else:
+            out["tiled"]["float32_split_tiles_vs_plain"] = (
+                tiled_mesh_modes(det, two, hd, float32=True))
+    return out
+
+
+def _packed(out, name: str):
+    """The packed detections of a program's outputs (the tuple form
+    packed)."""
+    from infercam_onnx_tpu_torch.detector import pack_detections
+
+    if name == "detect_program_tuple":
+        return pack_detections(*out)
+    return _outputs(out)[-1]
+
+
+def tiled_mesh_modes(det, two, hd: list[bytes], *,
+                     float32: bool = False) -> dict:
+    """The two tiled mesh modes over ``two``'s replicas on the 16 1080p
+    frames (pixels and packed planes): NMS launches a call, the
+    batch-sharded mode against the plain TiledDetector per shard, times
+    in turns. ``float32``: the default mode against the plain
+    TiledDetector on all 16 frames."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.parallel import TiledDetector
+
+    shim = native_jpeg.load()
+    device = det.device
+    frames = torch.from_numpy(np.stack(shim.decode_batch(hd))).to(device)
+    packed, geom = shim.decode_ycbcr_batch(hd)
+    packed = torch.from_numpy(np.array(packed)).to(device)
+    kw = dict(grid=TILE_GRID, overlap=TILE_OVERLAP)
+    plain = TiledDetector(det, HD, **kw)
+    split = TiledDetector(two, HD, mesh=two.mesh, **kw)
+    if float32:
+        agreement = {}
+        for name, call in (("pixels", lambda t: t.run_device(
+                frames, pack_output=True)), ("ycbcr", lambda t: (
+                t.run_device_ycbcr_packed(packed, geom, pack_output=True)))):
+            agreement[name] = detections_agreement(call(split), call(plain))
+        return agreement
+    sharded_out = TiledDetector(two, HD, mesh=two.mesh,
+                                batch_sharded_out=True, **kw)
+    entries = {
+        "pixels": lambda t, r=slice(None): t.run_device(frames[r],
+                                                        pack_output=True),
+        "ycbcr": lambda t, r=slice(None): t.run_device_ycbcr_packed(
+            packed[r], geom, pack_output=True)}
+    out = {"frames": len(hd), "tiles_per_call": len(hd) * len(plain.tiles),
+           "by_input": {}}
+    for name, call in entries.items():
+        for t in (plain, split, sharded_out):
+            call(t)  # the cuDNN choices
+        call(plain, slice(0, 8))
+        launches = {}
+        for mode, t in (("split_tiles", split),
+                        ("batch_sharded_out", sharded_out)):
+            torch.cuda.synchronize()
+            nms.kernel.launches = 0
+            got = call(t)
+            torch.cuda.synchronize()
+            launches[mode] = nms.kernel.launches
+            if mode == "batch_sharded_out":
+                want = torch.cat([call(plain, slice(0, 8)),
+                                  call(plain, slice(8, 16))])
+                identical = bool(torch.equal(got, want))
+            else:
+                split_vs_plain = detections_agreement(got, call(plain))
+        out["by_input"][name] = {
+            "launches": launches,
+            "batch_sharded_out_identical_per_shard": identical,
+            "split_tiles_vs_plain_bf16": split_vs_plain,
+            "ms_per_batch_in_turns": in_turns({
+                "plain_b16": lambda: call(plain),
+                "split_tiles": lambda: call(split),
+                "batch_sharded_out_2x8": lambda: call(sharded_out)}, 10)}
+    return out
 
 
 # -- phase 5: the serving tier ----------------------------------------------
@@ -1901,6 +2167,314 @@ def check_serve(serve: dict) -> None:
                              f"({annot})")
 
 
+def check_sharded(rec: dict) -> None:
+    """The sharded phase's failure conditions."""
+    for name, by_dtype in rec["by_program"].items():
+        for dtype, r in by_dtype.items():
+            what = f"{name} ({dtype})"
+            if (r["launches_one_replica"], r["launches_two_replicas"]) != (
+                    1, 2):
+                raise SystemExit(f"{what}: nms launches a call over one and "
+                                 f"two replicas {r['launches_one_replica']}"
+                                 f", {r['launches_two_replicas']}, not 1, 2")
+            if not r["one_replica_identical"]:
+                raise SystemExit(f"{what}: one replica differs from the "
+                                 f"plain detector")
+            if not r["two_replicas_identical_per_shard"]:
+                raise SystemExit(f"{what}: two replicas differ from the "
+                                 f"plain detector on each shard's rows")
+            if dtype == "float32" and not within_c3(r["two_replicas_vs_b16"]):
+                raise SystemExit(f"{what}: two replicas are not within C.3 "
+                                 f"of the 16-row call: "
+                                 f"{r['two_replicas_vs_b16']}")
+    for name, r in rec["tiled"]["by_input"].items():
+        if r["launches"] != {"split_tiles": 1, "batch_sharded_out": 2}:
+            raise SystemExit(f"tiled {name} on two replicas launched nms "
+                             f"{r['launches']} times a call")
+        if not r["batch_sharded_out_identical_per_shard"]:
+            raise SystemExit(f"tiled {name}, batch_sharded_out: differs from "
+                             f"the plain TiledDetector on each shard")
+    for name, a in rec["tiled"]["float32_split_tiles_vs_plain"].items():
+        if not within_c3(a):
+            raise SystemExit(f"tiled {name}, tiles split over two replicas "
+                             f"(float32): not within C.3 of the plain "
+                             f"TiledDetector: {a}")
+
+
+# -- phase 5e: a lockstep cluster of two serve processes on one card --------
+
+LOCKSTEP_MEMBERS, LOCKSTEP_STREAMS, LOCKSTEP_FPS = 2, 2, 30.0
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def http_json(port: int, path: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def read_json_line(proc, timeout_s: float) -> dict:
+    """The next JSON line a child prints, or SystemExit after
+    ``timeout_s``."""
+    import select
+
+    ready, _, _ = select.select([proc.stdout], [], [], timeout_s)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        raise SystemExit(f"a load generator printed nothing within "
+                         f"{timeout_s} s")
+    return json.loads(line)
+
+
+def _record_matches(record: dict, want) -> bool:
+    """A /detections record against one packed [D, 6] row set, by C.3."""
+    import numpy as np
+
+    n = int(want[:, 5].sum())
+    dets = record["detections"]
+    if len(dets) != n:
+        return False
+    if not n:
+        return True
+    return bool(np.abs(np.array([d["bbox"] for d in dets]) - want[:n, :4])
+                .max() <= 1e-5 and np.abs(np.array(
+                    [d["confidence"] for d in dets]) - want[:n, 4]).max()
+                <= 5e-5)
+
+
+def serve_lockstep(device) -> dict:
+    """`cluster_launch.py --no-supervise`: two serve processes on the card
+    in one gloo group with lockstep dispatch (RFB-320 float32, frozen
+    weights, pixels decode, host annotation, buckets 1-16, queue 32, a
+    4 ms window), each fed by a load generator of its own: 2 senders x 30
+    fps of the synthetic 640x480 JPEGs, a /detections viewer per stream
+    and a /face_stream on one, 1 s of warm traffic and then a 10 s window.
+    Every published record must equal the plain float32 detector on one
+    of the pictures by C.3; each member's NMS launches must equal its
+    dispatches."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch import codec
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    emit({"compute_mode": mode})
+    if "exclusive" in mode.lower():
+        raise SystemExit(f"serve_lockstep: the card's compute mode is {mode}"
+                         f"; two member processes cannot share it")
+    while True:  # http_base + 10 i and + 1 for each member, all free
+        base, coord, lock = free_ports(3)
+        try:
+            for port in (base + 1, base + 10, base + 11):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", port))
+            break
+        except OSError:
+            continue
+    http = [base + 10 * i for i in range(LOCKSTEP_MEMBERS)]
+    log = tempfile.TemporaryFile()  # the members' output, shown on failure
+    t0 = time.perf_counter()
+    launcher = subprocess.Popen(
+        [sys.executable, "-m", "infercam_onnx_tpu_torch.cluster_launch",
+         "--hosts", str(LOCKSTEP_MEMBERS), "--device", device.type,
+         "--no-supervise", "--http-base", str(base),
+         "--coordinator-port", str(coord), "--lockstep-port", str(lock),
+         "--", "--weights", str(WEIGHTS), "--compute-dtype", "float32",
+         "--decode-mode", "pixels", "--annotate", "host",
+         "--max-batch", "16", "--queue-capacity", "32",
+         "--batch-window-ms", "4", "--warmup", "640x480", "--warmup-sync",
+         "--link-adaptive", "off"],
+        cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
+    gens: list[subprocess.Popen] = []
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                stats = [http_json(port, "/stats") for port in http]
+                if not any(st["warming"] for st in stats):
+                    break
+            except OSError:
+                pass
+            if launcher.poll() is not None or time.time() > deadline:
+                log.seek(0)
+                raise SystemExit("serve_lockstep: the members did not come "
+                                 "up; " + log.read().decode(
+                                     errors="replace")[-3000:])
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        gens = [subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--load-generator",
+             str(port), str(port + 1), str(LOCKSTEP_STREAMS),
+             str(LOCKSTEP_FPS), str(SYNTH_PICS)], cwd=str(REPO),
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+            for port in http]
+
+        def send_all(frames: int) -> list[dict]:
+            for g in gens:
+                g.stdin.write(f"send {frames}\n")
+                g.stdin.flush()
+            return [read_json_line(g, SERVE_SECONDS + 60) for g in gens]
+
+        def settled(before: list[dict], sent: list[int]) -> list[dict]:
+            """/stats of each member once every frame sent since
+            ``before`` was served or dropped (the meter drains every 2 s)."""
+            deadline = time.time() + 30
+            while True:
+                now = [http_json(port, "/stats") for port in http]
+                done = [n["totals"].get("inferred_unique", 0)
+                        + n["totals"].get("dropped", 0)
+                        - b["totals"].get("inferred_unique", 0)
+                        - b["totals"].get("dropped", 0) >= s
+                        for n, b, s in zip(now, before, sent)]
+                if all(done) or time.time() > deadline:
+                    return now
+                time.sleep(0.5)
+
+        zero = [http_json(port, "/stats") for port in http]
+        warm = send_all(int(LOCKSTEP_FPS))  # 1 s: the viewers subscribe
+        before = settled(zero, [w["sent"] for w in warm])
+        windows: list[dict] = [{} for _ in http]
+        stop = threading.Event()
+
+        def poll():  # the meter's 2 s windows of each member
+            while not stop.is_set():
+                for i, port in enumerate(http):
+                    try:
+                        st = http_json(port, "/stats")
+                    except OSError:
+                        continue
+                    e2e = st.get("stages", {}).get("e2e")
+                    if e2e:
+                        windows[i][json.dumps(e2e, sort_keys=True)] = e2e
+                stop.wait(0.5)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        start = time.perf_counter()
+        loads = send_all(int(LOCKSTEP_FPS * SERVE_SECONDS))
+        window_s = time.perf_counter() - start
+        after = settled(before, [ld["sent"] for ld in loads])
+        stop.set()
+        poller.join()
+        views = []
+        for g in gens:
+            g.stdin.write("stop\n")
+            g.stdin.flush()
+            views.append(read_json_line(g, 60))
+            g.wait(60)
+    finally:
+        for g in gens:
+            if g.poll() is None:
+                g.kill()
+        if launcher.poll() is None:
+            launcher.send_signal(signal.SIGTERM)
+        try:
+            launcher.wait(60)
+        except subprocess.TimeoutExpired:
+            launcher.kill()
+            launcher.wait()
+        log.close()
+
+    # the plain float32 detector on each picture
+    det = Detector(DetectorConfig(compute_dtype="float32"),
+                   weights=str(WEIGHTS), device=device)
+    pics = [codec.decode_rgb(p.read_bytes())
+            for p in sorted(SYNTH_PICS.glob("*.jpg"))]
+    refs = [det.run_device(f[None], pack_output=True)[0].cpu().numpy()
+            for f in pics]
+    torch.cuda.synchronize()
+    members = []
+    for i in range(LOCKSTEP_MEMBERS):
+        b, a = before[i], after[i]
+        inferred = (a["totals"].get("inferred_unique", 0)
+                    - b["totals"].get("inferred_unique", 0))
+        records = [json.loads(line) for lines in views[i]["records"]
+                   for line in lines]
+        matched = [any(_record_matches(r, ref) for ref in refs)
+                   for r in records]
+        e2e = list(windows[i].values())
+        lb, la = b["lockstep"], a["lockstep"]
+        members.append({
+            "process": la["process"], "frames_sent": loads[i]["sent"],
+            "frames_inferred": inferred,
+            "frames_dropped": (a["totals"].get("dropped", 0)
+                               - b["totals"].get("dropped", 0)),
+            "inferred_fps": inferred / window_s,
+            "batches": (a["totals"].get("batches", 0)
+                        - b["totals"].get("batches", 0)),
+            "e2e_p50_ms_median_of_windows": (
+                float(np.median([w["p50_ms"] for w in e2e])) if e2e
+                else None),
+            "e2e_p99_ms_max_of_windows": (
+                max(w["p99_ms"] for w in e2e) if e2e else None),
+            "meter_windows": len(e2e),
+            "window_dispatches": la["dispatches"] - lb["dispatches"],
+            "window_nms_launches": la["nms_launches"] - lb["nms_launches"],
+            "dispatches": la["dispatches"], "nms_launches": la["nms_launches"],
+            "rounds": la["rounds"],
+            "records": len(records), "records_matching_plain": sum(matched),
+            "records_per_stream": [len(lines)
+                                   for lines in views[i]["records"]],
+            "face_parts": views[i]["face_parts"],
+            "face_part_shapes": views[i]["face_part_shapes"],
+            "topology": a["topology"]})
+    return {"members": members, "compute_mode": mode,
+            "streams_per_member": LOCKSTEP_STREAMS,
+            "fps_per_stream": LOCKSTEP_FPS, "window_s": window_s,
+            "startup_s": startup_s,
+            "e2e_note": "per member: the median of the meter's 2 s "
+                        "windows' p50 and the largest of their p99"}
+
+
+def check_lockstep(rec: dict) -> None:
+    """The lockstep phase's failure conditions."""
+    for m in rec["members"]:
+        who = f"lockstep member {m['process']}"
+        if not m["frames_inferred"] or not min(m["records_per_stream"]):
+            raise SystemExit(f"{who} did not serve each of its streams: "
+                             f"{m}")
+        if m["records_matching_plain"] != m["records"]:
+            raise SystemExit(f"{who}: {m['records'] - m['records_matching_plain']}"
+                             f" records differ from the plain float32 "
+                             f"detector on every picture")
+        if (m["nms_launches"] != m["dispatches"]
+                or m["window_nms_launches"] != m["window_dispatches"]):
+            raise SystemExit(f"{who}: nms launches {m['nms_launches']} "
+                             f"({m['window_nms_launches']} in the window) "
+                             f"for {m['dispatches']} dispatches "
+                             f"({m['window_dispatches']})")
+        if not m["face_parts"] or m["face_part_shapes"] != [[480, 640, 3]]:
+            raise SystemExit(f"{who}: /face_stream parts "
+                             f"{m['face_part_shapes']}")
+        if (m["topology"]["processes"], m["topology"]["lockstep"]) != (
+                LOCKSTEP_MEMBERS, True):
+            raise SystemExit(f"{who}: topology {m['topology']}")
+    if rec["members"][0]["rounds"] is None:
+        raise SystemExit("member 0 runs no lockstep coordinator")
+
+
 TURNS_CODE = """
 import json, sys, time, torch
 import chip_smoke as cs
@@ -2074,6 +2648,10 @@ def main() -> int:
     check_tiled(tiled)
     probe = link_probe(device)
     emit({"phase": "link_probe", "gpu": name, "power_limit": power, **probe})
+    sharded = sharded_path(device, jpegs, hd)
+    emit({"phase": "sharded_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", **sharded})
+    check_sharded(sharded)
 
     serves = {}
     for phase, decode_mode, annotate_mode, unit in (
@@ -2102,6 +2680,10 @@ def main() -> int:
                                        or kinds.get("ycbcr_tiled_rows")):
         raise SystemExit(f"the tiled server's checked batches took {kinds}, "
                          f"not a pixels and a tiled ycbcr unit")
+    lockstep = serve_lockstep(device)
+    emit({"phase": "serve_lockstep", "gpu": name, "power_limit": power,
+          **lockstep})
+    check_lockstep(lockstep)
 
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     head = ktime["a_random_b16_k256"]
@@ -2120,7 +2702,15 @@ def main() -> int:
             **{prog: rec["launches"]["nms"] for prog, rec in (
                 *annot["by_program"].items(), *coef["by_program"].items())},
             **tiled["by_scale"][1]["launches"],
-            **{phase: rec["nms_launches"] for phase, rec in serves.items()}},
+            # two replicas on the card: per replica a call, bfloat16
+            **{f"sharded_2x_{prog}": rec["bfloat16"]["launches_two_replicas"]
+               for prog, rec in sharded["by_program"].items()},
+            **{f"tiled_{mode}_{inp}": n
+               for inp, rec in sharded["tiled"]["by_input"].items()
+               for mode, n in rec["launches"].items()},
+            **{phase: rec["nms_launches"] for phase, rec in serves.items()},
+            "serve_lockstep": sum(m["window_nms_launches"]
+                                  for m in lockstep["members"])},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
         # at input (a), B=16 K=256 random boxes, as in the first version

@@ -162,14 +162,20 @@ class ClientConfig:
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The device an entry point runs on; raises rather than falling back.
 
-    A CUDA device with no GPU present is an error: the port never carries
-    on silently on the CPU. Pass ``device="cpu"`` to run there on purpose.
+    A CUDA device with no GPU present is an error, and so is an index
+    beyond ``torch.cuda.device_count()``: the port never carries on
+    silently on the CPU or on another card. Pass ``device="cpu"`` to run
+    there on purpose.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
+    if (dev.type == "cuda" and dev.index is not None
+            and dev.index >= torch.cuda.device_count()):
+        raise RuntimeError(f"{dev} does not exist: have "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -301,6 +301,16 @@ def _encode_quant(quality: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tables.astype(np.float32)).to(device)
 
 
+def as_tensor(a: torch.Tensor | np.ndarray) -> torch.Tensor:
+    """A host array as a tensor where it lies (uint16 quant tables as
+    int32: torch's uint16 has few ops); a tensor as it is."""
+    if isinstance(a, np.ndarray):  # torch wants writable memory
+        if a.dtype == np.uint16:
+            a = a.astype(np.int32)
+        a = torch.from_numpy(np.require(a, requirements="WC"))
+    return a
+
+
 def pack_detections(sel_boxes, sel_conf, count) -> torch.Tensor:
     """(boxes [B,D,4], confs [B,D], count [B]) -> ONE [B, D, 6] array
     (x0, y0, x1, y1, conf, valid); `unpack_detections` is the host-side
@@ -358,13 +368,17 @@ class Detector:
     # -- device program ----------------------------------------------------
 
     def _on_device(self, a: torch.Tensor | np.ndarray) -> torch.Tensor:
-        """``a`` as a tensor on the detector's device (uint16 quant tables
-        as int32: torch's uint16 has few ops)."""
-        if isinstance(a, np.ndarray):  # torch wants writable memory
-            if a.dtype == np.uint16:
-                a = a.astype(np.int32)
-            a = torch.from_numpy(np.require(a, requirements="WC"))
-        return a.to(self.device)
+        """``a`` as a tensor on the detector's device (`as_tensor`)."""
+        return as_tensor(a).to(self.device)
+
+    def _dispatch(self, inputs: list, call, fills: tuple | None = None):
+        """Run one program: ``call(replica, *inputs)``, where the replica
+        (the detector itself here) has ``model``, ``priors``,
+        ``preprocessor`` and ``device``, and the batch-major ``inputs`` are
+        on its device. `parallel.data_parallel.ShardedDetector` overrides
+        this to split the batch over replicas (``fills``: the value each
+        input's padding rows take there)."""
+        return call(self, *(self._on_device(a) for a in inputs))
 
     def _thresholds(self) -> dict:
         """The filter + NMS keyword arguments of every program."""
@@ -377,11 +391,14 @@ class Detector:
         """[B, H, W, 3] uint8 -> (boxes [B,D,4], confs [B,D], counts [B])
         as tensors on the device, or with ``pack_output`` one [B, D, 6]
         tensor. Returns without waiting for the device."""
-        images = self._on_device(images)
         _, h, w, _ = images.shape
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_program(self.model, self.priors, images, r_h, r_w,
-                              pack_output=pack_output, **self._thresholds())
+
+        def call(r, images):
+            return detect_program(r.model, r.priors, images,
+                                  *r.preprocessor.matrices(w, h),
+                                  pack_output=pack_output,
+                                  **self._thresholds())
+        return self._dispatch([images], call)
 
     def run_device_ycbcr(self, datas: list[bytes], *, scale: int = 1,
                          pack_output: bool = False):
@@ -400,13 +417,15 @@ class Detector:
         on the device, one host->device copy. Returns without waiting for
         the device."""
         w, h = geom["width"], geom["height"]
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_from_ycbcr(
-            self.model, self.priors, self._on_device(packed), r_h, r_w,
-            width=w, height=h, y_pw=geom["y_pw"], y_ph=geom["y_ph"],
-            c_pw=geom["c_pw"], c_ph=geom["c_ph"],
-            sampling=tuple(geom["sampling"]), pack_output=pack_output,
-            **self._thresholds())
+
+        def call(r, packed):
+            return detect_from_ycbcr(
+                r.model, r.priors, packed, *r.preprocessor.matrices(w, h),
+                width=w, height=h, y_pw=geom["y_pw"], y_ph=geom["y_ph"],
+                c_pw=geom["c_pw"], c_ph=geom["c_ph"],
+                sampling=tuple(geom["sampling"]), pack_output=pack_output,
+                **self._thresholds())
+        return self._dispatch([packed], call)
 
     def run_device_coefficients(self, datas: list[bytes], *,
                                 pack_output: bool = False):
@@ -426,17 +445,14 @@ class Detector:
         luma sampling -> detections as `run_device` gives them (IDCT to
         NMS on the device, `detect_from_coefficients`)."""
         w, h = wh
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_from_coefficients(
-            self.model, self.priors, self._on_device(y), self._on_device(cb),
-            self._on_device(cr), self._on_device(quant), r_h, r_w, width=w,
-            height=h, sampling=tuple(sampling), pack_output=pack_output,
-            **self._thresholds())
 
-    def _encode_quant(self, quality: int) -> torch.Tensor:
-        """[2, 64] float32 encode quant tables at ``quality`` on the
-        detector's device (the shim's, cached per quality and device)."""
-        return _encode_quant(quality, self.device)
+        def call(r, y, cb, cr, quant):
+            return detect_from_coefficients(
+                r.model, r.priors, y, cb, cr, quant,
+                *r.preprocessor.matrices(w, h), width=w, height=h,
+                sampling=tuple(sampling), pack_output=pack_output,
+                **self._thresholds())
+        return self._dispatch([y, cb, cr, quant], call)
 
     def run_device_ycbcr_annotated(self, packed, geom: dict, *,
                                    quality: int = 95,
@@ -447,14 +463,16 @@ class Detector:
         with `split_coefs` and `encode_coefs`. Planes that are not
         multiples of 8 (scaled decodes) are edge-padded on the device."""
         w, h = geom["width"], geom["height"]
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_annotate_from_ycbcr(
-            self.model, self.priors, self._on_device(packed), r_h, r_w,
-            self._encode_quant(quality), width=w, height=h,
-            y_pw=geom["y_pw"], y_ph=geom["y_ph"], c_pw=geom["c_pw"],
-            c_ph=geom["c_ph"], sampling=tuple(geom["sampling"]),
-            disp_dims=tuple(disp_dims) if disp_dims else None,
-            **self._thresholds())
+
+        def call(r, packed):
+            return detect_annotate_from_ycbcr(
+                r.model, r.priors, packed, *r.preprocessor.matrices(w, h),
+                _encode_quant(quality, r.device), width=w, height=h,
+                y_pw=geom["y_pw"], y_ph=geom["y_ph"], c_pw=geom["c_pw"],
+                c_ph=geom["c_ph"], sampling=tuple(geom["sampling"]),
+                disp_dims=tuple(disp_dims) if disp_dims else None,
+                **self._thresholds())
+        return self._dispatch([packed], call)
 
     def run_device_coefficients_annotated(
             self, y, cb, cr, quant, wh: tuple[int, int], *,
@@ -476,16 +494,20 @@ class Detector:
             disp_dims: tuple | None = None):
         """The device half of the splice transcode, packing done:
         ``shapes`` = ((y_bh, y_bw), (c_bh, c_bw)) (`detect_annotate_splice`).
-        The serving worker packs and uploads on its decode thread."""
+        The serving worker packs and uploads on its decode thread. Padding
+        rows get quant tables of ones, so they stay finite through the
+        dequantize/requantize round trip."""
         (y_bh, y_bw), (c_bh, c_bw) = shapes
         w, h = wh
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_annotate_splice(
-            self.model, self.priors, self._on_device(packed12),
-            self._on_device(quant), r_h, r_w, width=w, height=h, y_bw=y_bw,
-            y_bh=y_bh, c_bw=c_bw, c_bh=c_bh, sampling=tuple(sampling), k=k,
-            disp_dims=tuple(disp_dims) if disp_dims else None,
-            **self._thresholds())
+
+        def call(r, packed12, quant):
+            return detect_annotate_splice(
+                r.model, r.priors, packed12, quant,
+                *r.preprocessor.matrices(w, h), width=w, height=h, y_bw=y_bw,
+                y_bh=y_bh, c_bw=c_bw, c_bh=c_bh, sampling=tuple(sampling),
+                k=k, disp_dims=tuple(disp_dims) if disp_dims else None,
+                **self._thresholds())
+        return self._dispatch([packed12, quant], call, fills=(0, 1))
 
     def run_device_annotated(self, images, *, quality: int = 95,
                              subsampling: str = "420",
@@ -493,15 +515,16 @@ class Detector:
         """[B, H, W, 3] uint8 frames -> (packed quantized coefficients of
         the annotated output JPEG at ``subsampling``, packed detections)
         on the device (`detect_annotate`)."""
-        images = self._on_device(images)
         _, h, w, _ = images.shape
-        r_h, r_w = self.preprocessor.matrices(w, h)
-        return detect_annotate(
-            self.model, self.priors, images, r_h, r_w,
-            self._encode_quant(quality),
-            out_sampling=SUBSAMPLING_FACTORS[subsampling],
-            disp_dims=tuple(disp_dims) if disp_dims else None,
-            **self._thresholds())
+
+        def call(r, images):
+            return detect_annotate(
+                r.model, r.priors, images, *r.preprocessor.matrices(w, h),
+                _encode_quant(quality, r.device),
+                out_sampling=SUBSAMPLING_FACTORS[subsampling],
+                disp_dims=tuple(disp_dims) if disp_dims else None,
+                **self._thresholds())
+        return self._dispatch([images], call)
 
     def warmup(self, batch_size: int, height: int, width: int) -> None:
         """Run one (B, H, W) batch so the kernel build, cuDNN's algorithm

@@ -19,15 +19,22 @@ Usage::
         [--link-probe-period 0] [--link-annotate-floor-mbps 10] \
         [--link-tiled-crossover-mbps 40] [--link-tiled-ab on|off] \
         [--link-tiled-ab-tie-pct 10] \
-        [--max-rss-mb N] [--profile-dir DIR]
+        [--max-rss-mb N] [--profile-dir DIR] \
+        [--data-parallel auto|on|off] \
+        [--distributed HOST:PORT,num_processes=N,process_id=I] \
+        [--lockstep-address HOST:PORT] [--compute-dtype bfloat16|float32]
 
 The flags are the JAX server's for the ported paths: every decode mode
 (pixels, ycbcr, coefficients), both annotate modes (device by default,
-host), tiled high-resolution detection and the link probe, one device;
-the presets are the JAX server's.
+host), tiled high-resolution detection, the link probe, data-parallel
+replicas over this host's cards and a lockstep cluster of several
+processes (`parallel.lockstep`; ``cluster_launch.py`` starts one); the
+presets are the JAX server's. The ONNX paths (``--onnx``, ``--runtime``)
+are not ported.
 ``--device`` picks the device (``cuda`` unless asked otherwise); without
-``--weights`` the weights are the detector's seeded random ones. Port 0
-in an address binds a free port.
+``--weights`` the weights are the detector's seeded random ones;
+``--compute-dtype`` is the conv trunk's (the JAX server's native runtime
+runs bfloat16). Port 0 in an address binds a free port.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ import argparse
 import asyncio
 import faulthandler
 import logging
+import os
 import signal
 import sys
+import traceback
 
 # Named flag bundles (an explicitly passed flag wins over the preset),
 # as in the JAX server.
@@ -179,6 +188,22 @@ def main(argv: list[str] | None = None) -> int:
                     help="A/B gaps below this percent pick stacked")
     ap.add_argument("--profile-dir", default=None,
                     help="write a torch.profiler trace of the run here")
+    ap.add_argument("--data-parallel", default="auto",
+                    choices=["auto", "on", "off"],
+                    help="split stream batches over this host's cards "
+                         "(auto: when the cluster has >1 device; on: "
+                         "require that)")
+    ap.add_argument("--distributed", default=None,
+                    help="a cluster of several processes: host:port,"
+                         "num_processes=N,process_id=I (a torch.distributed "
+                         "gloo group)")
+    ap.add_argument("--lockstep-address", default=None,
+                    help="host:port of the lockstep dispatch coordinator "
+                         "(process 0 runs it); every member of a "
+                         "--distributed cluster serves with it")
+    ap.add_argument("--compute-dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"],
+                    help="dtype of the conv trunk")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
                     help="named flag bundle (explicit flags override)")
     ap.add_argument("--log-level", default="INFO")
@@ -198,6 +223,17 @@ def main(argv: list[str] | None = None) -> int:
         for key, value in PRESETS[args.preset].items():
             if key not in passed:
                 setattr(args, key, value)
+
+    if args.lockstep_address:
+        if not args.distributed:
+            ap.error("--lockstep-address requires --distributed")
+        if args.data_parallel == "off":
+            ap.error("--lockstep-address requires data-parallel serving")
+        if args.tile_min_pixels:
+            ap.error("--lockstep-address does not support tiling")
+        # --max-rss-mb is allowed: a breach exits the member with
+        # RSS_RECYCLE_EXIT_CODE for the cluster supervisor to re-form the
+        # cluster (serving/app.py)
 
     from infercam_onnx_tpu_torch.config import (DetectorConfig, EngineConfig,
                                                 ServerConfig)
@@ -240,8 +276,13 @@ def main(argv: list[str] | None = None) -> int:
         w, h = _dims(spec)
         warmup.append((h, w))
 
-    with device_trace(args.profile_dir):
-        try:
+    exit_code = 0
+    try:
+        if args.distributed:
+            from infercam_onnx_tpu_torch.parallel.multihost import initialize
+
+            initialize(args.distributed)
+        with device_trace(args.profile_dir):
             asyncio.run(serve_forever(
                 server_config=ServerConfig(
                     http_address=args.server_address,
@@ -255,15 +296,34 @@ def main(argv: list[str] | None = None) -> int:
                     min_confidence=args.min_confidence,
                     max_iou=args.max_iou,
                     top_k=args.top_k,
-                    max_detections=args.max_detections),
+                    max_detections=args.max_detections,
+                    compute_dtype=args.compute_dtype),
                 engine_config=engine_config,
                 warmup_resolutions=warmup or None,
                 warmup_async=args.warmup_async,
                 device=args.device,
-                weights=args.weights))
-        except KeyboardInterrupt:
-            pass
-    return 0
+                weights=args.weights,
+                data_parallel=args.data_parallel,
+                lockstep_address=args.lockstep_address))
+    except KeyboardInterrupt:
+        pass
+    except Exception:
+        if not args.distributed:
+            raise
+        # a crash (a bind failure, a refused lockstep peer, a failed
+        # group) must reach the supervisor as a non-zero status
+        traceback.print_exc()
+        exit_code = 1
+    finally:
+        if args.distributed:
+            # after the graceful close (listeners down, the session left),
+            # exit hard with the tracked status: the process group's
+            # threads would otherwise hold the interpreter's teardown, and
+            # a member that stops alone has no peer to tear it down with
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(exit_code)
+    return exit_code
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """Server wiring (``infercam_onnx_tpu/serving/app.py``; the reference's
 infer_server binary): ingest queue, data socket, router, micro-batched
 inference worker, HTTP endpoints and meter logger as asyncio tasks in one
-process, on one device (no mesh and no lockstep dispatch).
+process, on one device or over a mesh of replicas (``data_parallel``),
+alone or as one member of a lockstep cluster (``lockstep_address``, under
+a ``torch.distributed`` group: `parallel.multihost`).
 
 With ``link_adaptive`` the worker probes the host->device link on its
 device thread before the warm-up (which then runs the paths that will
@@ -26,6 +28,12 @@ from infercam_onnx_tpu_torch.config import (
     ServerConfig,
 )
 from infercam_onnx_tpu_torch.detector import Detector
+from infercam_onnx_tpu_torch.ops import nms
+from infercam_onnx_tpu_torch.parallel.lockstep import (LockstepDetector,
+                                                       LockstepSessionEnded)
+from infercam_onnx_tpu_torch.parallel.mesh import make_mesh
+from infercam_onnx_tpu_torch.parallel.multihost import (process_count,
+                                                        process_index)
 from infercam_onnx_tpu_torch.serving.data_socket import (DataSocket,
                                                          spawn_data_socket)
 from infercam_onnx_tpu_torch.serving.http import HttpServer
@@ -63,8 +71,13 @@ class InferServer:
             t.cancel()
         await asyncio.gather(*self.tasks, return_exceptions=True)
         # let the stage threads finish the batches they hold
-        await asyncio.get_running_loop().run_in_executor(
-            None, self.worker.close)
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(None, self.worker.close)
+        # a lockstep member leaves its cluster session, so the other
+        # members' pumps stop waiting (it ends the session for all)
+        close_det = getattr(self.worker._detector, "close", None)
+        if close_det is not None:
+            await loop.run_in_executor(None, close_det)
         try:
             await asyncio.wait_for(self.data_server.wait_closed(), 5.0)
         except asyncio.TimeoutError:
@@ -76,11 +89,17 @@ def _split_addr(addr: str) -> tuple[str, int]:
     return host or "127.0.0.1", int(port)
 
 
-def topology(detector: Detector) -> dict:
-    """What /stats and /metrics report of the deployment."""
+def topology(detector: Detector, *, lockstep: bool = False) -> dict:
+    """What /stats and /metrics report of the deployment: the devices of
+    the whole cluster (this process's replicas times the processes, as
+    ``jax.devices()`` is global under ``jax.distributed``), the processes,
+    and whether dispatch runs in lockstep."""
     dev = detector.device
+    local = len(getattr(detector, "mesh", None) or [dev])
     return {
-        "devices": 1,
+        "devices": local * process_count(),
+        "processes": process_count(),
+        "lockstep": lockstep,
         "platform": "gpu" if dev.type == "cuda" else "cpu",
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
@@ -97,6 +116,9 @@ async def start_server(
     warmup_async: bool = False,
     device: str | torch.device = "cuda",
     weights: str | None = None,
+    data_parallel: str = "auto",
+    mesh: list | None = None,
+    lockstep_address: str | None = None,
 ) -> InferServer:
     """Start every task of the server and return its handle.
 
@@ -105,11 +127,45 @@ async def start_server(
     (`InferenceWorker.warmup` over ``warmup_resolutions``) runs on the
     worker's device thread: before the listeners open, or with
     ``warmup_async`` while they already serve (raw streams flow at once,
-    inference starts when it ends; /stats says "warming" meanwhile)."""
-    if detector is None:
-        detector = Detector(detector_config, weights=weights, device=device)
+    inference starts when it ends; /stats says "warming" meanwhile).
 
-    worker = InferenceWorker(detector, engine_config, server_config)
+    ``data_parallel``: "auto" splits batches over this process's cards
+    (`parallel.mesh.make_mesh`) when the cluster has more than one device
+    (the cards here times the processes of the group), "on" requires
+    that, "off" serves on ``device`` alone. An explicit ``mesh`` (a list of
+    devices) overrides the policy. ``lockstep_address`` (``host:port`` of
+    the coordinator, which process 0 runs) makes this process a member of
+    a lockstep cluster (`parallel.lockstep`); it needs a mesh."""
+    if mesh is None and data_parallel != "off":
+        local = (torch.cuda.device_count()
+                 if torch.device(device).type == "cuda" else 1)
+        if local * process_count() > 1:
+            mesh = make_mesh(local, device=device)
+            log.info("data-parallel serving over %d local device(s), %d "
+                     "process(es)", local, process_count())
+        elif data_parallel == "on":
+            raise ValueError(
+                "--data-parallel on requires >1 device, have 1")
+    if detector is None:
+        detector = Detector(detector_config, weights=weights,
+                            device=mesh[0] if mesh else device)
+
+    if lockstep_address:
+        # every member of the cluster runs the same programs in the same
+        # order (parallel/lockstep.py)
+        if mesh is None:
+            raise ValueError("--lockstep-address requires a mesh "
+                             "(--data-parallel must not be off)")
+        detector = LockstepDetector(
+            detector, mesh, lockstep_address,
+            coordinator=process_index() == 0, n_processes=process_count(),
+            ladder=engine_config.batch_buckets)
+        log.info("lockstep dispatch joined: process %d/%d", process_index(),
+                 process_count())
+
+    worker = InferenceWorker(detector, engine_config, server_config,
+                             mesh=mesh)
+    detector = worker._detector
     router = FrameRouter(worker.submit, server_config)
     queue: asyncio.Queue = asyncio.Queue(
         maxsize=server_config.ingest_capacity)
@@ -146,9 +202,22 @@ async def start_server(
     host, port = _split_addr(server_config.socket_address)
     data_server = await spawn_data_socket(queue, host, port)
 
-    http = HttpServer(router, topology=topology(detector),
+    is_lockstep = isinstance(detector, LockstepDetector)
+
+    def lockstep_counts() -> dict:
+        coord = detector._coord
+        return {"process": process_index(), "processes": process_count(),
+                "dispatches": detector.dispatches,
+                "nms_launches": nms.kernel.launches,
+                "rounds": None if coord is None else coord.rounds,
+                "session_ended": detector.session_ended}
+
+    http = HttpServer(router,
+                      topology=topology(detector,
+                                        lockstep=bool(lockstep_address)),
                       warming=lambda: worker.warming,
-                      link=lambda: worker.link_status)
+                      link=lambda: worker.link_status,
+                      lockstep=lockstep_counts if is_lockstep else None)
     hhost, hport = _split_addr(server_config.http_address)
     await http.start(hhost, hport)
 
@@ -161,10 +230,27 @@ async def start_server(
                 return  # clean exit
             except asyncio.CancelledError:
                 raise
+            except LockstepSessionEnded:
+                # terminal: the session cannot be rejoined, and a restarted
+                # worker would serve nothing; the process exits non-zero so
+                # a supervisor restarts the cluster as a unit
+                log.error("%s: lockstep session ended; terminal, stopping "
+                          "the server", name)
+                raise
             except Exception:
                 log.exception("%s task crashed; restarting in %.1fs",
                               name, backoff_s)
                 await asyncio.sleep(backoff_s)
+
+    async def lockstep_watch():
+        # a dead session is terminal for the process, but demand-driven
+        # serving may never dispatch again to notice: poll it and raise, so
+        # serve_forever exits non-zero and a supervisor restarts the cluster
+        while not detector.session_ended:
+            await asyncio.sleep(0.5)
+        raise LockstepSessionEnded(
+            "lockstep session has ended (peer left or dispatch diverged); "
+            "restart the cluster as a unit")
 
     tasks = [
         asyncio.create_task(
@@ -176,6 +262,9 @@ async def start_server(
             supervised("meter", lambda: meter_logger(
                 server_config.meter_period_s)), name="meter"),
     ]
+    if lockstep_address:
+        tasks.append(asyncio.create_task(lockstep_watch(),
+                                         name="lockstep-watch"))
     if engine_config.link_adaptive and engine_config.link_probe_period_s:
         async def link_reprobe():
             # on the device thread, between dispatches: a recovered link
@@ -189,9 +278,16 @@ async def start_server(
         tasks.append(asyncio.create_task(
             supervised("link-reprobe", link_reprobe), name="link-reprobe"))
     if server_config.max_rss_mb:
+        # a lockstep member cannot re-exec into its running session: it
+        # exits with a code of its own, and the cluster supervisor
+        # (cluster_launch.py) re-forms the whole cluster; a server on its
+        # own re-execs itself and its senders reconnect
         tasks.append(asyncio.create_task(
             rss_watchdog(server_config.max_rss_mb,
-                         server_config.rss_check_period_s),
+                         server_config.rss_check_period_s,
+                         on_breach=(_exit_for_supervisor
+                                    if hasattr(detector, "session_ended")
+                                    else _reexec)),
             name="rss-watchdog"))
     return InferServer(router=router, worker=worker, http=http, tasks=tasks,
                        data_server=data_server)
@@ -213,6 +309,21 @@ def _reexec() -> None:
     argv = [sys.executable] + list(sys.orig_argv[1:])
     log.warning("re-executing: %s", argv)
     os.execv(argv[0], argv)
+
+
+# tells a supervisor an RSS recycle from a crash
+RSS_RECYCLE_EXIT_CODE = 17
+
+
+def _exit_for_supervisor() -> None:
+    """A lockstep member's RSS breach: exit at once with
+    `RSS_RECYCLE_EXIT_CODE`. The other members see the session end and
+    exit too; the cluster supervisor re-forms the whole cluster, and the
+    senders reconnect. ``os._exit``: a graceful interpreter teardown
+    would wait on the process group's threads."""
+    log.warning("exiting for cluster supervisor re-formation (exit code "
+                "%d)", RSS_RECYCLE_EXIT_CODE)
+    os._exit(RSS_RECYCLE_EXIT_CODE)
 
 
 async def rss_watchdog(max_rss_mb: int, period_s: float = 10.0,

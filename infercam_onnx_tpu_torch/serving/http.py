@@ -9,7 +9,8 @@ infer_server/src/endpoints.rs):
 - ``GET /detections?name=X`` -> one NDJSON record per inferred frame
 - ``GET /snapshot?name=X[&raw=1][&timeout=S]`` -> one JPEG
 - ``GET /stats`` (JSON: the meter's counters, the topology, whether the
-  warm-up runs, and ``link``, the link probe's decision table),
+  warm-up runs, ``link``, the link probe's decision table, and on a
+  lockstep member ``lockstep``, its dispatch counts),
   ``GET /metrics`` (Prometheus text), ``GET /`` (a status page listing
   the active streams)
 
@@ -72,16 +73,19 @@ def _simple_response(status: str, body: bytes,
 
 class HttpServer:
     def __init__(self, router: FrameRouter, topology: dict | None = None,
-                 warming=None, link=None):
+                 warming=None, link=None, lockstep=None):
         self._router = router
-        # serving topology ({"devices", "platform", "device", "detector"})
-        # shown in /stats, /metrics and the status page
+        # serving topology ({"devices", "processes", "lockstep",
+        # "platform", "device", "detector"}) shown in /stats, /metrics and
+        # the status page
         self._topology = topology
         # callable -> bool: device warm-up still running
         self._warming = warming
         # callable -> dict | None: the link probe's verdict and the paths
         # in effect (serving/link.py), shown in /stats
         self._link = link
+        # callable -> dict: a lockstep member's dispatch counts, in /stats
+        self._lockstep = lockstep
         self._server: asyncio.AbstractServer | None = None
         self._tasks: set[asyncio.Task] = set()  # live connection handlers
 
@@ -198,6 +202,8 @@ class HttpServer:
                         status = self._link()
                         if status is not None:
                             payload["link"] = status
+                    if self._lockstep is not None:
+                        payload["lockstep"] = self._lockstep()
                     writer.write(_simple_response(
                         "200 OK", json.dumps(payload).encode(),
                         "application/json", keep_alive=keep))

@@ -1,7 +1,7 @@
-"""Micro-batched inference worker on one device: the port of
+"""Micro-batched inference worker: the port of
 ``infercam_onnx_tpu/serving/inferer.py`` for the pixels, ycbcr and
 coefficients decode modes, both annotate modes, tiled high-resolution
-detection and the link probe (one device: no mesh).
+detection and the link probe, on one device or over a mesh of replicas.
 
 The same shape as the JAX worker:
 
@@ -89,6 +89,18 @@ What changes is the transfer discipline, written for a CUDA device:
   it reads a single number: a non-blocking device-to-host copy read early
   gives whatever the buffer held, silently.
 
+On a mesh (a list of devices, `parallel.mesh`) the detector is a
+`parallel.data_parallel.ShardedDetector` (a plain one is wrapped), and the
+batches pad to a multiple of its ``batch_granularity``. The decode thread
+then leaves each unit's inputs in their pinned host tensors: the detector
+copies each replica's shard on that replica's copy stream, and gathers the
+outputs onto the first device, ordered on the compute stream, so the
+readback covers every replica. The per-row tiled upload is a one-device
+route; on a mesh such units take the stacked one. A lockstep member
+(`parallel.lockstep.LockstepDetector`) takes tiled units through its own
+``run_device_tiled`` and ``run_device_tiled_ycbcr``, inside the cluster's
+rounds.
+
 On ``device="cpu"`` there are no streams and no pinned memory: the inputs
 are plain tensors and the outputs are read as soon as they are returned.
 """
@@ -114,6 +126,7 @@ from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
 from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
     SUBSAMPLING_FACTORS, plane_geometry, splice_blocks, split_coefs)
+from infercam_onnx_tpu_torch.parallel.data_parallel import ShardedDetector
 from infercam_onnx_tpu_torch.parallel.tiling import TiledDetector
 from infercam_onnx_tpu_torch.protocol import as_jpeg_stream_item
 from infercam_onnx_tpu_torch.serving import link
@@ -141,7 +154,15 @@ class InferenceWorker:
         detector: Detector,
         engine_config: EngineConfig = EngineConfig(),
         server_config: ServerConfig = ServerConfig(),
+        mesh: list | None = None,
     ):
+        """``mesh``: a list of devices to split batches over (a detector
+        already built over a mesh, a `ShardedDetector` or a lockstep
+        member, brings its own and is taken as it is); None with a plain
+        detector serves on its one device."""
+        if mesh is not None and getattr(detector, "mesh", None) is None:
+            detector = ShardedDetector(detector, mesh)
+        self._mesh = getattr(detector, "mesh", None)
         self._detector = detector
         self._cfg = engine_config
         self._server_cfg = server_config
@@ -263,7 +284,7 @@ class InferenceWorker:
         if tiled is None:
             tiled = self._tiled[(h, w)] = TiledDetector(
                 self._detector, (w, h), grid=self._cfg.tile_grid,
-                overlap=self._cfg.tile_overlap)
+                overlap=self._cfg.tile_overlap, mesh=self._mesh)
         return tiled
 
     def _bind_device(self) -> None:
@@ -289,7 +310,14 @@ class InferenceWorker:
 
     def _bucket_size(self, n: int) -> int:
         i = bisect.bisect_left(self._buckets, n)
-        return self._buckets[min(i, len(self._buckets) - 1)]
+        bucket = self._buckets[min(i, len(self._buckets) - 1)]
+        if self._mesh is not None:
+            # pad to a multiple of the replicas here, so the sharded
+            # programs never pad again (a lockstep member's granularity is
+            # its own replica count)
+            m = self._detector.batch_granularity
+            bucket = ((bucket + m - 1) // m) * m
+        return bucket
 
     async def run(self) -> None:
         """decode(k+2) || device(k+1) || encode+publish(k), each stage on
@@ -411,7 +439,8 @@ class InferenceWorker:
                     elif base == "ycbcr":
                         groups.append((
                             "ycbcr_tiled_rows"
-                            if self._effective_tiled_route == "rows"
+                            if (self._effective_tiled_route == "rows"
+                                and self._mesh is None)
                             else "ycbcr_tiled", members, geom))
                     else:  # detection-only coefficients do not tile
                         groups.append((base, members, geom))
@@ -548,8 +577,9 @@ class InferenceWorker:
                    ) -> tuple[list[torch.Tensor], torch.cuda.Event | None]:
         """``hosts`` on the device, and the one event after which all of
         them are there (None on the CPU, where they are used as they
-        are)."""
-        if self._copy_stream is None:
+        are, and on a mesh, where the detector copies each replica's
+        shard from them)."""
+        if self._copy_stream is None or self._mesh is not None:
             return hosts, None
         with torch.cuda.stream(self._copy_stream):
             batches = [h.to(self.device, non_blocking=True) for h in hosts]
@@ -594,11 +624,17 @@ class InferenceWorker:
             return det.run_device_annotated(
                 batch, quality=srv.jpeg_quality,
                 subsampling=srv.jpeg_subsampling, disp_dims=dims)
+        tile_kw = dict(grid=cfg.tile_grid, overlap=cfg.tile_overlap)
         if kind == "pixels" and self._is_tiled(unit["w"], unit["h"]):
+            if hasattr(det, "run_device_tiled"):  # inside a lockstep round
+                return det.run_device_tiled(batch, (unit["w"], unit["h"]),
+                                            **tile_kw)
             return self._get_tiled(unit["w"], unit["h"]).run_device(
                 batch, pack_output=True)
         if kind == "pixels":
             return det.run_device(batch, pack_output=True)
+        if kind == "ycbcr_tiled" and hasattr(det, "run_device_tiled_ycbcr"):
+            return det.run_device_tiled_ycbcr(batch, unit["geom"], **tile_kw)
         if kind in ("ycbcr_tiled", "ycbcr_tiled_rows"):
             tiled = self._get_tiled(unit["w"], unit["h"])
             run = (tiled.run_device_ycbcr_rows if kind == "ycbcr_tiled_rows"
@@ -628,7 +664,8 @@ class InferenceWorker:
             outs = self._program(unit)
             return (outs if isinstance(outs, tuple) else (outs,)), None
         with torch.cuda.stream(self._compute_stream):
-            self._compute_stream.wait_event(unit["ready"])
+            if unit["ready"] is not None:
+                self._compute_stream.wait_event(unit["ready"])
             outs = self._program(unit)
             hosts = []
             for out in (outs if isinstance(outs, tuple) else (outs,)):
@@ -799,5 +836,6 @@ class InferenceWorker:
                             y, cb, cr, q, wh, sampling=samp,
                             k=self._cfg.annotate_splice_blocks,
                             disp_dims=dims)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for dev in set(self._mesh or [self.device]):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)

@@ -1,7 +1,8 @@
 """The hand CUDA kernels against their plain versions, the packed-YCbCr
 decode tail, the annotated and coefficient programs against the CPU, the
-serving worker's stream-ordered transfers, and the tiled programs (one
-NMS launch a call, kernel = scan, rows = packed), on the card.
+serving worker's stream-ordered transfers, the tiled programs (one
+NMS launch a call, kernel = scan, rows = packed) and two data-parallel
+replicas on one card, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -563,3 +564,60 @@ def test_tiled_programs_kernel_equals_scan_and_rows_equal_packed(cuda, size):
     assert torch.equal(outs["ycbcr"], scan_ycbcr)
     assert torch.equal(outs["rows"], outs["ycbcr"])
     assert int(outs["pixels"][..., 5].sum()) >= 4
+
+
+@pytest.mark.parametrize("host_input", [False, True])
+def test_sharded_detector_on_one_card_matches_each_shard(cuda, host_input):
+    """Two replicas on one card (four streams): each replica's rows are
+    bit-identical to the plain detector on them alone, the result lands
+    on the first device, and NMS launches once a replica. Host input
+    goes up through pinned memory on each replica's copy stream."""
+    from infercam_onnx_tpu_torch.parallel import ShardedDetector
+
+    det = Detector(DetectorConfig(compute_dtype="float32"), device=cuda)
+    frames = np.stack(list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic"),
+        resize=(640, 480)).values()))
+    x = frames if host_input else torch.from_numpy(frames).to(cuda)
+    sharded = ShardedDetector(det, [cuda, cuda])
+    want = torch.cat([det.run_device(x[i:i + 2], pack_output=True)
+                      for i in (0, 2)])
+    before = nms.kernel.launches
+    got = sharded.run_device(x, pack_output=True)
+    torch.cuda.synchronize()
+    assert nms.kernel.launches == before + 2
+    assert got.device == torch.device("cuda", 0)
+    assert torch.equal(got, want)
+    # an odd batch pads on the card and slices back
+    got3 = sharded.run_device(x[:3], pack_output=True)
+    assert got3.shape[0] == 3
+    assert torch.equal(got3[:2], want[:2])
+
+
+def test_mesh_worker_reads_back_every_replica(cuda):
+    """The worker on a two-entry mesh hands the pinned batch to the
+    sharded detector; its readback on the compute stream covers both
+    replicas' rows."""
+    from infercam_onnx_tpu_torch.config import EngineConfig
+    from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+
+    det = Detector(DetectorConfig(compute_dtype="float32"), device=cuda)
+    worker = InferenceWorker(det, EngineConfig(batch_buckets=(1, 2, 4),
+                                               annotate_mode="host",
+                                               link_adaptive=False),
+                             mesh=[cuda, cuda])
+    try:
+        rng = np.random.default_rng(3)
+        frames = rng.integers(0, 256, (3, 240, 320, 3), dtype=np.uint8)
+        unit = worker._unit("pixels", [(None, f) for f in frames])
+        assert unit["ready"] is None and unit["batch"].is_pinned()
+        assert unit["batch"].shape[0] == 4  # the mesh multiple
+        outs, done = worker._device_exec.submit(worker._run_unit,
+                                                unit).result()
+        done.synchronize()
+        batch = unit["batch"].to(cuda)
+        want = torch.cat([det.run_device(batch[i:i + 2], pack_output=True)
+                          for i in (0, 2)])
+        assert torch.equal(outs[-1], want.cpu())
+    finally:
+        worker.close()

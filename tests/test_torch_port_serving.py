@@ -246,15 +246,36 @@ def test_engine_defaults_and_bad_values():
             EngineConfig(**kwargs)
 
 
-@pytest.mark.parametrize("argv", [
-    ["--onnx", "m.onnx"], ["--data-parallel", "on"],
-    ["--lockstep-address", "127.0.0.1:1"],
+LOCKSTEP = ["--lockstep-address", "127.0.0.1:1"]
+DISTRIBUTED = ["--distributed", "127.0.0.1:2,num_processes=2,process_id=0"]
+
+
+@pytest.mark.parametrize("argv, jax_error", [
+    (["--onnx", "m.onnx"], False), (["--runtime", "graph"], False),
+    (LOCKSTEP, True),
+    (LOCKSTEP + DISTRIBUTED + ["--data-parallel", "off"], True),
+    (LOCKSTEP + DISTRIBUTED + ["--tile-min-pixels", "921600"], True),
 ])
-def test_serve_cli_refuses_unported_paths(argv, capsys):
+def test_serve_cli_refuses_unported_paths(argv, jax_error, capsys,
+                                          monkeypatch):
+    """The ONNX paths are not ported (unknown flags); a lockstep member
+    without --distributed, without data-parallel serving or with tiling
+    is refused with the JAX CLI's argument error."""
+    import faulthandler
+
+    # the JAX CLI registers a stack dump on stderr, which capsys replaced
+    monkeypatch.setattr(faulthandler, "register", lambda *a, **k: None)
     with pytest.raises(SystemExit) as exc:
         tserve.main(["--device", "cpu", *argv])
     assert exc.value.code == 2
-    assert "error" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "error" in err
+    if jax_error:
+        with pytest.raises(SystemExit) as jexc:
+            jserve.main(list(argv))
+        assert jexc.value.code == 2
+        assert err.splitlines()[-1].split("error: ")[1] == \
+            capsys.readouterr().err.splitlines()[-1].split("error: ")[1]
 
 
 @pytest.mark.parametrize("argv", [
@@ -273,6 +294,7 @@ def test_serve_cli_refuses_unported_paths(argv, capsys):
     ["--link-healthy-mbps", "1000", "--link-probe-period", "30",
      "--link-annotate-floor-mbps", "20", "--link-tiled-crossover-mbps",
      "80", "--link-tiled-ab", "off", "--link-tiled-ab-tie-pct", "5"],
+    ["--data-parallel", "off"], ["--data-parallel", "on", "--max-batch", "8"],
 ])
 def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
     """Every decode and annotate mode, tiling, the link policy's flags and
@@ -296,7 +318,8 @@ def test_serve_cli_builds_the_jax_engine_config(argv, monkeypatch):
     assert jserve.main(list(argv)) == 0
     assert tserve.main(["--device", "cpu", *argv]) == 0
     got, want = served["port"], served["jax"]
-    for key in ("warmup_resolutions", "warmup_async"):
+    for key in ("warmup_resolutions", "warmup_async", "data_parallel",
+                "lockstep_address"):
         assert got[key] == want[key]
     port_cfg, jax_cfg = got["engine_config"], want["engine_config"]
     for field in ("batch_buckets", "queue_capacity", "batch_window_ms",
@@ -553,7 +576,8 @@ def test_stats_and_metrics_report_the_port(detector, small_dir):
             return stats, metrics
 
     stats, metrics = asyncio.run(run())
-    assert stats["topology"] == {"devices": 1, "platform": "cpu",
+    assert stats["topology"] == {"devices": 1, "processes": 1,
+                                 "lockstep": False, "platform": "cpu",
                                  "device": "cpu", "detector": "Detector"}
     assert stats["warming"] is False
     assert stats["totals"]["inferred_unique"] >= 1
@@ -561,7 +585,8 @@ def test_stats_and_metrics_report_the_port(detector, small_dir):
     text = metrics.split(b"\r\n\r\n", 1)[1].decode()
     assert "infercam_inferred_unique_total" in text
     assert 'infercam_topology_info{detector="Detector",device="cpu",' \
-           'devices="1",platform="cpu"} 1' in text
+           'devices="1",lockstep="False",platform="cpu",processes="1"} 1' \
+        in text
 
 
 def test_unwatched_stream_is_not_inferred(detector, small_dir):
