@@ -96,6 +96,19 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    default mode (32 of the 64 tiles a replica) one launch a call, in
    float32 within C.3 of the plain TiledDetector. ms a batch in turns
    (plain B=16, 1 x 16, 2 x 8) and the host ms a call;
+4h. graph_path: the ONNX graph runtime, GraphDetector on the committed
+   export of the frozen twin (tests/fixtures/ultraface_twin_rfb320.onnx,
+   float32) on the 16 frames of 4b: run_device with one NMS launch a call
+   and an output bit-identical to the plain scan's, within 1e-4 of the
+   native float32 Detector, the goldens gate through it, float32 card
+   against CPU on 2 frames by C.3 and unmoved with TF32 on; its
+   run_device_ycbcr_packed, run_device_annotated,
+   run_device_ycbcr_annotated and run_device_coefficients_arrays one
+   launch each and within 1e-4 of the native detector's same programs;
+   to_mesh([cuda:0, cuda:0]) bit-identical per 8-row shard, two launches
+   a call; ms a batch in turns with the native float32 detector, host ms
+   a call of each, the profiler's device time and ops a call, and the
+   graph's nodes a call;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -140,6 +153,10 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    equal its dispatches, padding rounds included. It reports each
    member's frames/s, drops, e2e p50/p99 (over the meter's 2 s windows)
    and member 0's coordinator rounds;
+5f. serve_graph (run after 4h, before 5): the serve phase of 5 (pixels
+   decode, host annotation, 16 x 30 fps of 640x480) with GraphDetector on
+   the export of 4h in place of the native detector, with the same
+   reports and checks;
 6. the whole run's seconds, the kernels line, the nvidia-smi line, and
    the final status line.
 
@@ -1724,6 +1741,159 @@ def tiled_mesh_modes(det, two, hd: list[bytes], *,
 
 # -- phase 5: the serving tier ----------------------------------------------
 
+# -- phase 4h: the ONNX graph runtime ---------------------------------------
+
+GRAPH_ONNX = REPO / "tests" / "fixtures" / "ultraface_twin_rfb320.onnx"
+# GraphDetector's programs beside Detector's (replica_programs' names)
+GRAPH_TAILS = ("detect_from_ycbcr", "detect_annotate",
+               "detect_annotate_from_ycbcr", "detect_from_coefficients")
+
+
+def within(agreement: dict, tol: float) -> bool:
+    """Counts equal, boxes and confidences within ``tol``."""
+    return (agreement["counts_equal"] and agreement["max_box_diff"] <= tol
+            and agreement["max_conf_diff"] <= tol)
+
+
+def graph_path(device, jpegs: list[bytes]) -> dict:
+    """GraphDetector on the committed export of the frozen twin
+    (tests/fixtures/ultraface_twin_rfb320.onnx, float32) on the 16 frames
+    of 4b (the shim's RGB decode of ``jpegs``, on the card): run_device
+    with one NMS launch a call and its packed output bit-identical to the
+    same program with the plain scan; within 1e-4 of the native float32
+    Detector on the frozen weights; the goldens gate; card against CPU on
+    2 frames by C.3, unmoved with TF32 on process-wide; the four device
+    tail programs one NMS launch each and within 1e-4 of the native
+    detector's same program; to_mesh([device, device]) bit-identical per
+    8-row shard with two launches a call; ms a batch in turns with the
+    native detector, host ms a call of each, the profiler's device time
+    and ops a call, and the graph's nodes a call."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector, detect_program
+    from infercam_onnx_tpu_torch.eval.goldens import check_against_goldens
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+
+    cfg = DetectorConfig(variant="RFB-320", compute_dtype="float32")
+    graph = GraphDetector(str(GRAPH_ONNX), cfg, device=device)
+    native = Detector(cfg, weights=str(WEIGHTS), device=device)
+    frames_np = np.stack(native_jpeg.load().decode_batch(jpegs))
+    frames = torch.from_numpy(frames_np).to(device)
+    b, h, w, _ = frames.shape
+    graph.warmup(b, h, w)
+    native.warmup(b, h, w)
+    out = {"onnx": str(GRAPH_ONNX.relative_to(REPO)), "batch": b,
+           "frame": [w, h], "dtype": "float32",
+           "graph_nodes": len(graph.graph.nodes),
+           "graph_nodes_a_call": graph.executor.nodes_run}
+
+    def launches_of(call):
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        result = call()
+        torch.cuda.synchronize()
+        return result, nms.kernel.launches
+
+    packed, out["launches"] = launches_of(
+        lambda: graph.run_device(frames, pack_output=True))
+    out["host_copies_a_call"] = graph.executor.host_copies
+    out["sanity"] = check_packed(packed, cfg.min_confidence)
+    r_h, r_w = graph.preprocessor.matrices(w, h)
+    plain = detect_program(graph.model, graph.priors, frames, r_h, r_w,
+                           pack_output=True, nms_impl="scan",
+                           **graph._thresholds())
+    out["identical_kernel_vs_plain"] = bool(torch.equal(plain, packed))
+    want = native.run_device(frames, pack_output=True)
+    out["vs_native_float32"] = detections_agreement(packed, want)
+
+    gold_cfg = DetectorConfig(variant="RFB-320", compute_dtype="float32",
+                              top_k=512, max_detections=256)
+    out["goldens"] = check_against_goldens(
+        GraphDetector(str(GRAPH_ONNX), gold_cfg, device=device),
+        str(SYNTH_PICS), str(GOLDENS))
+
+    cpu = GraphDetector(str(GRAPH_ONNX), cfg, device="cpu")
+    on_card = graph.run_device(frames[:2], pack_output=True).cpu()
+    out["float32_cuda_vs_cpu"] = detections_agreement(
+        on_card, cpu.run_device(frames_np[:2], pack_output=True))
+    out["identical_with_tf32_on"] = {}
+    for state in ("on_legacy_api", "on_fp32_precision_api"):
+        set_tf32(state)
+        out["identical_with_tf32_on"][state] = torch.equal(
+            graph.run_device(frames[:2], pack_output=True).cpu(), on_card)
+    set_tf32("default")
+
+    progs = replica_programs(device, jpegs)
+    rows = slice(None)
+    out["by_program"] = {}
+    for name in GRAPH_TAILS:
+        got, launches = launches_of(lambda: progs[name](graph, rows))
+        out["by_program"][name] = {
+            "launches": launches,
+            "vs_native_float32": detections_agreement(
+                _packed(got, name), _packed(progs[name](native, rows),
+                                            name))}
+
+    two = graph.to_mesh([device, device])
+    got_two, out["launches_two_replicas"] = launches_of(
+        lambda: two.run_device(frames, pack_output=True))
+    out["two_replicas_identical_per_shard"] = outputs_equal(
+        got_two, concat_outputs([graph.run_device(frames[r],
+                                                  pack_output=True)
+                                 for r in (slice(0, 8), slice(8, 16))]))
+
+    calls = {"graph": lambda: graph.run_device(frames, pack_output=True),
+             "native_float32": lambda: native.run_device(frames,
+                                                         pack_output=True)}
+    out["ms_per_batch_in_turns"] = in_turns(calls)
+    out["host_ms_per_call"] = {n: host_call_ms(c) for n, c in calls.items()}
+    for n, c in calls.items():
+        prof = profile_device(c, 10)
+        out.setdefault("profile", {})[n] = {
+            "device_busy_ms_per_batch": prof["device_ms"],
+            "profiled_wall_ms_per_batch": prof["wall_ms"],
+            "device_idle_share": prof["idle_share"],
+            "device_ops_per_batch": prof["device_ops_per_iter"],
+            "top_device_ms": prof["top"][:5]}
+    return out
+
+
+def check_graph(rec: dict) -> None:
+    """The graph phase's failure conditions."""
+    if rec["launches"] != 1 or not rec["sanity"]["ok"]:
+        raise SystemExit(f"graph run_device: {rec['launches']} nms launches "
+                         f"(not 1) or failed sanity {rec['sanity']}")
+    if not rec["identical_kernel_vs_plain"]:
+        raise SystemExit("graph run_device: kernel and plain NMS differ")
+    if not within(rec["vs_native_float32"], 1e-4):
+        raise SystemExit(f"graph run_device is not within 1e-4 of the native "
+                         f"float32 detector: {rec['vs_native_float32']}")
+    if not rec["goldens"]["passed"]:
+        raise SystemExit("the goldens gate failed through GraphDetector")
+    if not within_c3(rec["float32_cuda_vs_cpu"]):
+        raise SystemExit(f"graph run_device: float32 on the card differs "
+                         f"from the CPU's: {rec['float32_cuda_vs_cpu']}")
+    if not all(rec["identical_with_tf32_on"].values()):
+        raise SystemExit("the graph detector's output moved with the "
+                         "process-wide TF32 setting")
+    for name, r in rec["by_program"].items():
+        if r["launches"] != 1:
+            raise SystemExit(f"graph {name}: {r['launches']} nms launches")
+        if not within(r["vs_native_float32"], 1e-4):
+            raise SystemExit(f"graph {name} is not within 1e-4 of the "
+                             f"native detector: {r['vs_native_float32']}")
+    if rec["launches_two_replicas"] != 2 or not rec[
+            "two_replicas_identical_per_shard"]:
+        raise SystemExit("graph to_mesh over two replicas: "
+                         f"{rec['launches_two_replicas']} launches, "
+                         f"identical per shard "
+                         f"{rec['two_replicas_identical_per_shard']}")
+
+
 SERVE_STREAMS = 16
 SERVE_FPS = 30.0
 SERVE_SECONDS = 10.0
@@ -1879,7 +2049,8 @@ async def get_json(port: int, path: str) -> dict:
 
 async def _serve(device, decode_mode: str, annotate_mode: str, *,
                  streams: int, fps: float, frame: tuple[int, int],
-                 pics: pathlib.Path, **engine_kw) -> dict:
+                 pics: pathlib.Path, graph: bool = False,
+                 **engine_kw) -> dict:
     import asyncio
 
     import torch
@@ -1892,7 +2063,15 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
     from infercam_onnx_tpu_torch.serving.router import stream_key
     from infercam_onnx_tpu_torch.utils.profiling import STAGES
 
-    det = Detector(weights=str(WEIGHTS), device=device)  # RFB-320, bfloat16
+    if graph:
+        from infercam_onnx_tpu_torch.config import DetectorConfig
+        from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+        det = GraphDetector(str(GRAPH_ONNX),
+                            DetectorConfig(compute_dtype="float32"),
+                            device=device)
+    else:
+        det = Detector(weights=str(WEIGHTS), device=device)  # bfloat16
     t0 = time.perf_counter()
     server = await start_server(
         # the phase drains the meter itself, once, after the window
@@ -2042,7 +2221,8 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
 
     e2e = stages.get("e2e", {})
     return {
-        "model": "RFB-320", "dtype": "bfloat16", "decode_mode": decode_mode,
+        "model": "RFB-320", "runtime": "graph" if graph else "native",
+        "dtype": det.config.compute_dtype, "decode_mode": decode_mode,
         "annotate_mode": annotate_mode, "streams": streams,
         "fps_per_stream": fps, "frame": list(frame),
         "engine": engine_kw, "link": link_stats,
@@ -2081,9 +2261,12 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
 def serve_phase(device, decode_mode: str = "pixels",
                 annotate_mode: str = "host", *, streams: int = SERVE_STREAMS,
                 fps: float = SERVE_FPS, frame: tuple[int, int] = (640, 480),
-                pics: pathlib.Path = SYNTH_PICS, **engine_kw) -> dict:
+                pics: pathlib.Path = SYNTH_PICS, graph: bool = False,
+                **engine_kw) -> dict:
     """The port's server in this process on ``device``: RFB-320 bfloat16
-    on the frozen weights, buckets 1-16, queue 32, a 4 ms gather window,
+    on the frozen weights (with ``graph``, GraphDetector on the committed
+    export of the same weights, float32), buckets 1-16, queue 32, a 4 ms
+    gather window,
     coalescing, ``decode_mode`` decode at scale 1 and ``annotate_mode``
     annotation, the link probe on (and ``engine_kw``), warmed up at
     ``frame`` (width, height).
@@ -2098,7 +2281,7 @@ def serve_phase(device, decode_mode: str = "pixels",
 
     return asyncio.run(_serve(device, decode_mode, annotate_mode,
                               streams=streams, fps=fps, frame=frame,
-                              pics=pics, **engine_kw))
+                              pics=pics, graph=graph, **engine_kw))
 
 
 def check_tiled(tiled: dict) -> None:
@@ -2652,8 +2835,18 @@ def main() -> int:
     emit({"phase": "sharded_path", "gpu": name, "power_limit": power,
           "variant": "RFB-320", **sharded})
     check_sharded(sharded)
+    graph = graph_path(device, jpegs)
+    emit({"phase": "graph_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", **graph})
+    check_graph(graph)
 
     serves = {}
+    rec = serves["serve_graph"] = serve_phase(device, graph=True)
+    emit({"phase": "serve_graph", "gpu": name, "power_limit": power, **rec})
+    check_serve(rec)
+    if not rec["checked_batch_kinds"].get("pixels"):
+        raise SystemExit("no checked batch of the serve_graph server took "
+                         "its pixels unit")
     for phase, decode_mode, annotate_mode, unit in (
             ("serve", "pixels", "host", "pixels"),
             ("serve_ycbcr", "ycbcr", "host", "ycbcr"),
@@ -2708,6 +2901,10 @@ def main() -> int:
             **{f"tiled_{mode}_{inp}": n
                for inp, rec in sharded["tiled"]["by_input"].items()
                for mode, n in rec["launches"].items()},
+            "graph_detect_program": graph["launches"],
+            **{f"graph_{prog}": rec["launches"]
+               for prog, rec in graph["by_program"].items()},
+            "graph_2x_detect_program": graph["launches_two_replicas"],
             **{phase: rec["nms_launches"] for phase, rec in serves.items()},
             "serve_lockstep": sum(m["window_nms_launches"]
                                   for m in lockstep["members"])},

@@ -6,8 +6,14 @@ ported path rewritten by hand for Hopper (``csrc/``). It imports neither
 ``jax`` nor anything of the JAX package.
 
 Ported so far: the fused detect path (preprocess -> UltraFace -> filter +
-greedy NMS -> packed ``[B, D, 6]`` output), its weight loaders, the
-``detect`` CLI and the goldens check.
+greedy NMS -> packed ``[B, D, 6]`` output) with its weight loaders, the
+packed-YCbCr and coefficient inputs and the device annotate tails, the
+serving tier (``serve``, every decode and annotate mode), tiling,
+data-parallel replicas and lockstep clusters, the ``detect`` CLI and the
+goldens check, and the ONNX graph runtime's convolutional op set
+(`models.onnx_exec.GraphExecutor`, `GraphDetector`, the structural
+converter ``models.convert.params_from_onnx``, ``--onnx`` and
+``--runtime graph``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise.
@@ -16,3 +22,21 @@ with no GPU and no explicit CPU request they raise.
 from infercam_onnx_tpu_torch.config import DetectorConfig, resolve_device
 
 __all__ = ["DetectorConfig", "resolve_device"]
+
+
+def __getattr__(name):
+    # lazy top-level API: importing the package stays cheap
+    if name == "Detector":
+        from infercam_onnx_tpu_torch.detector import Detector
+
+        return Detector
+    if name == "GraphDetector":
+        from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+        return GraphDetector
+    if name == "ShardedDetector":
+        from infercam_onnx_tpu_torch.parallel.data_parallel import (
+            ShardedDetector)
+
+        return ShardedDetector
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

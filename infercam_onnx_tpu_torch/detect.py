@@ -3,12 +3,16 @@
 Usage::
 
     python -m infercam_onnx_tpu_torch.detect photo.jpg [-o out.jpg] \
-        [--variant RFB-640] [--weights model.npz] [--device cuda|cpu]
+        [--variant RFB-640] [--weights model.npz] [--device cuda|cpu] \
+        [--onnx model.onnx [--runtime native|graph]]
 
 Decodes the JPEG on the host, runs preprocess + UltraFace + filter + NMS
 on the device, prints the detections as one JSON line and, with ``-o``,
 writes the annotated JPEG. ``--weights`` reads an .npz in either layout
-`models.checkpoint.load_params` knows; without it the weights are
+`models.checkpoint.load_params` knows; ``--onnx`` reads an UltraFace ONNX
+export through the structural converter (`models.convert.params_from_onnx`),
+or with ``--runtime graph`` runs the graph itself in float32
+(`models.onnx_exec.GraphDetector`). Without either the weights are
 deterministic random ones from ``--seed``.
 """
 
@@ -36,8 +40,16 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--weights", default=None,
                     help=".npz weights: upstream names or the JAX "
                          "package's checkpoint layout")
+    ap.add_argument("--onnx", default=None,
+                    help="explicit ONNX file to load weights from")
+    ap.add_argument("--runtime", default="native",
+                    choices=["native", "graph"],
+                    help="graph: run the ONNX graph itself through the "
+                         "graph executor (requires --onnx)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.runtime == "graph" and not args.onnx:
+        ap.error("--runtime graph requires --onnx")
 
     from infercam_onnx_tpu_torch import codec
     from infercam_onnx_tpu_torch.config import DetectorConfig
@@ -49,9 +61,21 @@ def main(argv: list[str] | None = None) -> int:
     config = DetectorConfig(
         variant=args.variant, min_confidence=args.min_confidence,
         max_iou=args.max_iou, top_k=args.top_k,
-        max_detections=args.max_detections)
-    det = Detector(config, weights=args.weights, rng=args.seed,
-                   device=args.device)
+        max_detections=args.max_detections,
+        compute_dtype=("float32" if args.runtime == "graph"
+                       else DetectorConfig.compute_dtype))
+    if args.runtime == "graph":
+        from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+        det = GraphDetector(args.onnx, config, device=args.device)
+    elif args.onnx:
+        from infercam_onnx_tpu_torch.models.convert import params_from_onnx
+
+        det = Detector(config, params=params_from_onnx(args.onnx),
+                       device=args.device)
+    else:
+        det = Detector(config, weights=args.weights, rng=args.seed,
+                       device=args.device)
     detections = det.detect(frame)
 
     print(json.dumps({

@@ -208,6 +208,9 @@ class TiledDetector:
                  grid: tuple[int, int] = (2, 2), overlap: float = 0.2,
                  mesh: list | None = None, axis: str = "data",
                  batch_sharded_out: bool = False):
+        if getattr(detector, "graph", None) is not None:
+            raise ValueError("a graph detector has no tiled programs "
+                             "(neither has the JAX GraphDetector)")
         self.detector = detector
         self.frame_w, self.frame_h = frame_size  # (width, height)
         self.tiles = tuple(tile_grid_boxes(self.frame_w, self.frame_h,

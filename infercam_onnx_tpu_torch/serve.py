@@ -22,19 +22,22 @@ Usage::
         [--max-rss-mb N] [--profile-dir DIR] \
         [--data-parallel auto|on|off] \
         [--distributed HOST:PORT,num_processes=N,process_id=I] \
-        [--lockstep-address HOST:PORT] [--compute-dtype bfloat16|float32]
+        [--lockstep-address HOST:PORT] [--compute-dtype bfloat16|float32] \
+        [--onnx model.onnx [--runtime native|graph]]
 
 The flags are the JAX server's for the ported paths: every decode mode
 (pixels, ycbcr, coefficients), both annotate modes (device by default,
 host), tiled high-resolution detection, the link probe, data-parallel
 replicas over this host's cards and a lockstep cluster of several
 processes (`parallel.lockstep`; ``cluster_launch.py`` starts one); the
-presets are the JAX server's. The ONNX paths (``--onnx``, ``--runtime``)
-are not ported.
+presets are the JAX server's. ``--onnx`` loads an UltraFace ONNX export
+through the structural converter; with ``--runtime graph`` the server runs
+the graph itself (`models.onnx_exec.GraphDetector`, float32; no tiling and
+no lockstep, as in the JAX server).
 ``--device`` picks the device (``cuda`` unless asked otherwise); without
-``--weights`` the weights are the detector's seeded random ones;
-``--compute-dtype`` is the conv trunk's (the JAX server's native runtime
-runs bfloat16). Port 0 in an address binds a free port.
+``--weights`` or ``--onnx`` the weights are the detector's seeded random
+ones; ``--compute-dtype`` is the native conv trunk's (the JAX server's
+native runtime runs bfloat16). Port 0 in an address binds a free port.
 """
 
 from __future__ import annotations
@@ -204,6 +207,12 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--compute-dtype", default="bfloat16",
                     choices=["bfloat16", "float32"],
                     help="dtype of the conv trunk")
+    ap.add_argument("--onnx", default=None,
+                    help="explicit ONNX file to load weights from")
+    ap.add_argument("--runtime", default="native",
+                    choices=["native", "graph"],
+                    help="graph: run the ONNX graph itself through the "
+                         "graph executor (requires --onnx)")
     ap.add_argument("--preset", default=None, choices=sorted(PRESETS),
                     help="named flag bundle (explicit flags override)")
     ap.add_argument("--log-level", default="INFO")
@@ -231,9 +240,17 @@ def main(argv: list[str] | None = None) -> int:
             ap.error("--lockstep-address requires data-parallel serving")
         if args.tile_min_pixels:
             ap.error("--lockstep-address does not support tiling")
+        if args.runtime != "native":
+            ap.error("--lockstep-address requires --runtime native")
         # --max-rss-mb is allowed: a breach exits the member with
         # RSS_RECYCLE_EXIT_CODE for the cluster supervisor to re-form the
         # cluster (serving/app.py)
+
+    if args.runtime == "graph":
+        if not args.onnx:
+            ap.error("--runtime graph requires --onnx")
+        if args.tile_min_pixels:
+            ap.error("--runtime graph does not support tiling")
 
     from infercam_onnx_tpu_torch.config import (DetectorConfig, EngineConfig,
                                                 ServerConfig)
@@ -276,12 +293,33 @@ def main(argv: list[str] | None = None) -> int:
         w, h = _dims(spec)
         warmup.append((h, w))
 
+    detector_config = DetectorConfig(
+        variant=args.variant,
+        min_confidence=args.min_confidence,
+        max_iou=args.max_iou,
+        top_k=args.top_k,
+        max_detections=args.max_detections,
+        compute_dtype=("float32" if args.runtime == "graph"
+                       else args.compute_dtype))
     exit_code = 0
     try:
         if args.distributed:
             from infercam_onnx_tpu_torch.parallel.multihost import initialize
 
             initialize(args.distributed)
+        detector = None
+        if args.runtime == "graph":
+            from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+            detector = GraphDetector(args.onnx, detector_config,
+                                     device=args.device)
+        elif args.onnx:
+            from infercam_onnx_tpu_torch.detector import Detector
+            from infercam_onnx_tpu_torch.models.convert import params_from_onnx
+
+            detector = Detector(detector_config,
+                                params=params_from_onnx(args.onnx),
+                                device=args.device)
         with device_trace(args.profile_dir):
             asyncio.run(serve_forever(
                 server_config=ServerConfig(
@@ -291,13 +329,8 @@ def main(argv: list[str] | None = None) -> int:
                                        if args.assume_frame_dims else None),
                     max_rss_mb=args.max_rss_mb,
                     rss_check_period_s=args.rss_check_period),
-                detector_config=DetectorConfig(
-                    variant=args.variant,
-                    min_confidence=args.min_confidence,
-                    max_iou=args.max_iou,
-                    top_k=args.top_k,
-                    max_detections=args.max_detections,
-                    compute_dtype=args.compute_dtype),
+                detector_config=detector_config,
+                detector=detector,
                 engine_config=engine_config,
                 warmup_resolutions=warmup or None,
                 warmup_async=args.warmup_async,

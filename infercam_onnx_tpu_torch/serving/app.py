@@ -149,6 +149,11 @@ async def start_server(
     if detector is None:
         detector = Detector(detector_config, weights=weights,
                             device=mesh[0] if mesh else device)
+    if (mesh is not None and not lockstep_address
+            and getattr(detector, "mesh", None) is None
+            and hasattr(detector, "to_mesh")):
+        # a graph detector re-binds its own programs to the mesh
+        detector = detector.to_mesh(mesh)
 
     if lockstep_address:
         # every member of the cluster runs the same programs in the same

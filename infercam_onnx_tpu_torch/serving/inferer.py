@@ -160,8 +160,13 @@ class InferenceWorker:
         already built over a mesh, a `ShardedDetector` or a lockstep
         member, brings its own and is taken as it is); None with a plain
         detector serves on its one device."""
+        if engine_config.tile_min_pixels and getattr(detector, "graph",
+                                                     None) is not None:
+            raise ValueError("--runtime graph does not support tiling")
         if mesh is not None and getattr(detector, "mesh", None) is None:
-            detector = ShardedDetector(detector, mesh)
+            # a graph detector re-binds its own programs to the mesh
+            detector = (detector.to_mesh(mesh) if hasattr(detector, "to_mesh")
+                        else ShardedDetector(detector, mesh))
         self._mesh = getattr(detector, "mesh", None)
         self._detector = detector
         self._cfg = engine_config
@@ -421,11 +426,18 @@ class InferenceWorker:
                 except ValueError:
                     for job in pixel_jobs:
                         pixel_decode(job, None)
-            decode = (self._decode_ycbcr if mode == "ycbcr"
-                      else self._decode_coefficients)
-            base = "coef" if mode == "coefficients" else "ycbcr"
-            for kind, chosen in (("", plain), ("_annot", annot)):
-                for members, geom in (decode(chosen, pixel_decode)
+            decoders = {"coef": self._decode_coefficients,
+                        "ycbcr": self._decode_ycbcr}
+            plain_base = "coef" if mode == "coefficients" else "ycbcr"
+            # a detector without the splice transcode (a graph detector)
+            # annotates coefficients-mode frames on the ycbcr tail, as the
+            # JAX worker does
+            annot_base = ("coef" if mode == "coefficients" and hasattr(
+                self._detector, "run_device_coefficients_annotated")
+                else "ycbcr")
+            for kind, base, chosen in (("", plain_base, plain),
+                                       ("_annot", annot_base, annot)):
+                for members, geom in (decoders[base](chosen, pixel_decode)
                                       if chosen else ()):
                     w, h = ((geom["width"], geom["height"]) if geom
                             else members[0][1][4])  # coefficients: wh
@@ -831,10 +843,18 @@ class InferenceWorker:
                         [probe] * b)
                     det.run_device_coefficients_arrays(
                         y, cb, cr, q, wh, sampling=samp, pack_output=True)
-                    if annotate_device and not self._is_tiled(*wh):
+                    if not annotate_device or self._is_tiled(*wh):
+                        continue
+                    if hasattr(det, "run_device_coefficients_annotated"):
                         det.run_device_coefficients_annotated(
                             y, cb, cr, q, wh, sampling=samp,
                             k=self._cfg.annotate_splice_blocks,
+                            disp_dims=dims)
+                    else:  # the ycbcr annotate tail (no splice program)
+                        packed, geom = native_jpeg.load().decode_ycbcr_batch(
+                            [probe] * b, scale=s)
+                        det.run_device_ycbcr_annotated(
+                            packed, geom, quality=srv.jpeg_quality,
                             disp_dims=dims)
             for dev in set(self._mesh or [self.device]):
                 if dev.type == "cuda":

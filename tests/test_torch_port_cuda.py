@@ -2,7 +2,7 @@
 decode tail, the annotated and coefficient programs against the CPU, the
 serving worker's stream-ordered transfers, the tiled programs (one
 NMS launch a call, kernel = scan, rows = packed) and two data-parallel
-replicas on one card, on the card.
+replicas on one card, and the ONNX graph detector, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -621,3 +621,84 @@ def test_mesh_worker_reads_back_every_replica(cuda):
         assert torch.equal(outs[-1], want.cpu())
     finally:
         worker.close()
+
+
+# -- the ONNX graph runtime ---------------------------------------------------
+
+GRAPH_ONNX = REPO / "tests" / "fixtures" / "ultraface_twin_rfb320.onnx"
+
+
+def _graph_frames() -> np.ndarray:
+    """The four synthetic pictures, plain and mirrored, at 640x480."""
+    pics = list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic"),
+        resize=(640, 480)).values())
+    return np.ascontiguousarray(np.stack(pics + [p[:, ::-1] for p in pics]))
+
+
+def test_graph_detector_on_cuda_matches_cpu(cuda):
+    """GraphDetector on the committed export, TF32 turned on for the whole
+    process: card = CPU by ROADMAP C.3 (counts equal, boxes within 1e-5,
+    confidences within 5e-5)."""
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = "tf32"
+    try:
+        frames = _graph_frames()
+        got = GraphDetector(str(GRAPH_ONNX), device=cuda).run_device(
+            frames, pack_output=True).cpu()
+        want = GraphDetector(str(GRAPH_ONNX), device="cpu").run_device(
+            frames, pack_output=True)
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
+    assert torch.equal(got[..., 5], want[..., 5])
+    torch.testing.assert_close(got[..., :4], want[..., :4], rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(got[..., 4], want[..., 4], rtol=0, atol=5e-5)
+
+
+def test_graph_detector_launches_the_nms_kernel_once_a_call(cuda):
+    """One NMS launch a call of every program, and run_device equal to the
+    same program with the plain scan bit for bit."""
+    from infercam_onnx_tpu_torch.detector import detect_program
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+    det = GraphDetector(str(GRAPH_ONNX), device=cuda)
+    frames = torch.from_numpy(_graph_frames()).to(cuda)
+    det.run_device(frames, pack_output=True)
+    torch.cuda.synchronize()
+    before = nms.kernel.launches
+    got = det.run_device(frames, pack_output=True)
+    torch.cuda.synchronize()
+    assert nms.kernel.launches == before + 1
+    r_h, r_w = det.preprocessor.matrices(640, 480)
+    plain = detect_program(det.model, det.priors, frames, r_h, r_w,
+                           pack_output=True, nms_impl="scan",
+                           **det._thresholds())
+    assert torch.equal(got, plain)
+    before = nms.kernel.launches
+    det.run_device_annotated(frames)
+    torch.cuda.synchronize()
+    assert nms.kernel.launches == before + 1
+
+
+def test_graph_detector_to_mesh_bit_identical_per_shard(cuda):
+    """to_mesh over [cuda:0, cuda:0]: two replicas, each shard's rows
+    bit-identical to the plain graph detector on them, two NMS launches a
+    call."""
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+    det = GraphDetector(str(GRAPH_ONNX), device=cuda)
+    two = det.to_mesh([cuda, cuda])
+    assert not hasattr(two, "run_device_coefficients_annotated")
+    frames = torch.from_numpy(_graph_frames()).to(cuda)
+    want = torch.cat([det.run_device(frames[r], pack_output=True)
+                      for r in (slice(0, 4), slice(4, 8))])
+    torch.cuda.synchronize()
+    before = nms.kernel.launches
+    got = two.run_device(frames, pack_output=True)
+    torch.cuda.synchronize()
+    assert nms.kernel.launches == before + 2
+    assert torch.equal(got, want)

@@ -250,17 +250,20 @@ LOCKSTEP = ["--lockstep-address", "127.0.0.1:1"]
 DISTRIBUTED = ["--distributed", "127.0.0.1:2,num_processes=2,process_id=0"]
 
 
-@pytest.mark.parametrize("argv, jax_error", [
-    (["--onnx", "m.onnx"], False), (["--runtime", "graph"], False),
-    (LOCKSTEP, True),
-    (LOCKSTEP + DISTRIBUTED + ["--data-parallel", "off"], True),
-    (LOCKSTEP + DISTRIBUTED + ["--tile-min-pixels", "921600"], True),
+GRAPH = ["--runtime", "graph", "--onnx", "m.onnx"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--runtime", "graph"], GRAPH + ["--tile-min-pixels", "921600"],
+    LOCKSTEP, LOCKSTEP + DISTRIBUTED + ["--data-parallel", "off"],
+    LOCKSTEP + DISTRIBUTED + ["--tile-min-pixels", "921600"],
+    LOCKSTEP + DISTRIBUTED + GRAPH,
 ])
-def test_serve_cli_refuses_unported_paths(argv, jax_error, capsys,
-                                          monkeypatch):
-    """The ONNX paths are not ported (unknown flags); a lockstep member
-    without --distributed, without data-parallel serving or with tiling
-    is refused with the JAX CLI's argument error."""
+def test_serve_cli_refuses_unported_paths(argv, capsys, monkeypatch):
+    """The JAX CLI's argument errors, each with the JAX CLI's message: the
+    graph runtime without --onnx or with tiling, and a lockstep member
+    without --distributed, without data-parallel serving, with tiling or
+    on the graph runtime."""
     import faulthandler
 
     # the JAX CLI registers a stack dump on stderr, which capsys replaced
@@ -270,12 +273,11 @@ def test_serve_cli_refuses_unported_paths(argv, jax_error, capsys,
     assert exc.value.code == 2
     err = capsys.readouterr().err
     assert "error" in err
-    if jax_error:
-        with pytest.raises(SystemExit) as jexc:
-            jserve.main(list(argv))
-        assert jexc.value.code == 2
-        assert err.splitlines()[-1].split("error: ")[1] == \
-            capsys.readouterr().err.splitlines()[-1].split("error: ")[1]
+    with pytest.raises(SystemExit) as jexc:
+        jserve.main(list(argv))
+    assert jexc.value.code == 2
+    assert err.splitlines()[-1].split("error: ")[1] == \
+        capsys.readouterr().err.splitlines()[-1].split("error: ")[1]
 
 
 @pytest.mark.parametrize("argv", [
