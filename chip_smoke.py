@@ -109,6 +109,21 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    a call; ms a batch in turns with the native float32 detector, host ms
    a call of each, the profiler's device time and ops a call, and the
    graph's nodes a call;
+4i. qdq_path: GraphDetector on the committed int8 QDQ export of the same
+   twin (tests/fixtures/ultraface_twin_rfb320_qdq.onnx, float32) on the
+   16 frames of 4b: every program one NMS launch a call, run_device's
+   output bit-identical to the plain scan's, to_mesh over two replicas
+   per shard with two launches, card against CPU on 2 frames by
+   qdq_agreement (the CPU tests' bar), no host copy a call; box parity
+   with the float GraphDetector, nodes a call and how many are Q/DQ, ms a
+   batch in turns with the float GraphDetector, host ms a call, the
+   profiler's device time and ops a batch;
+4j. graph_ops: each other op family of the graph runtime on the card
+   against the port on the CPU, float32 with TF32 off: the committed
+   CRNN, norm/activation and einsum/logsoftmax/cumsum exports,
+   gather/scatter, GridSample and RoiAlign, a data-dependent If and Loop
+   inside torch.func.vmap and a Scan, and MatMulInteger, ConvInteger and
+   QLinearConv bit-equal; each its largest difference and tolerance;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -156,7 +171,8 @@ Phases, each printing short JSON lines; any failure exits non-zero:
 5f. serve_graph (run after 4h, before 5): the serve phase of 5 (pixels
    decode, host annotation, 16 x 30 fps of 640x480) with GraphDetector on
    the export of 4h in place of the native detector, with the same
-   reports and checks;
+   reports and checks; 5g. serve_qdq (after 5f) the same with the int8
+   QDQ export of 4i;
 6. the whole run's seconds, the kernels line, the nvidia-smi line, and
    the final status line.
 
@@ -1755,6 +1771,49 @@ def within(agreement: dict, tol: float) -> bool:
             and agreement["max_conf_diff"] <= tol)
 
 
+QDQ_ONNX = REPO / "tests" / "fixtures" / "ultraface_twin_rfb320_qdq.onnx"
+# Two runs of one int8 QDQ graph whose float32 sums run in other orders
+# (the card and the CPU; the port and the JAX package) quantize an
+# activation that sits on a rounding tie one step apart now and then, and
+# the step travels on through the graph: matched boxes within 2e-3 (the
+# JAX package's own bar against fbgemm), confidences within two steps of
+# the score's quantization (0.012), and a detection only one side has
+# within 0.05 of the confidence threshold, on at most a quarter of them.
+QDQ_BOX_TOL, QDQ_CONF_TOL, QDQ_NEAR_THRESHOLD = 2e-3, 0.025, 0.05
+
+
+def qdq_agreement(got, want, min_confidence: float) -> dict:
+    """Packed detections of two runs of an int8 QDQ graph, matched per
+    frame by IoU >= 0.5: the matched pairs' largest box and confidence
+    differences, the confidences of the detections only one side has,
+    and whether they hold the bar above (``ok``)."""
+    import numpy as np
+
+    from infercam_onnx_tpu_torch.detector import unpack_detections
+    from infercam_onnx_tpu_torch.eval.goldens import match_detections
+
+    got, want = (unpack_detections(np.asarray(p.cpu() if hasattr(p, "cpu")
+                                              else p)) for p in (got, want))
+    box = conf = 0.0
+    alone, total = [], 0
+    for g, w in zip(got, want):
+        total += max(len(g), len(w))
+        pairs = match_detections(g, w)
+        for i, j, _ in pairs:
+            box = max(box, float(np.abs(np.asarray(g[i][0])
+                                        - np.asarray(w[j][0])).max()))
+            conf = max(conf, abs(g[i][1] - w[j][1]))
+        alone += [g[i][1] for i in set(range(len(g))) - {p[0] for p in pairs}]
+        alone += [w[j][1] for j in set(range(len(w))) - {p[1] for p in pairs}]
+    return {"detections": total, "matched": total - len(alone),
+            "max_box_diff": box, "max_conf_diff": conf,
+            "unmatched_confidences": sorted(alone),
+            "ok": bool(total and box <= QDQ_BOX_TOL and conf <= QDQ_CONF_TOL
+                       and len(alone) <= 0.25 * total
+                       and all(c < min_confidence + QDQ_NEAR_THRESHOLD
+                               for c in alone))}
+
+
 def graph_path(device, jpegs: list[bytes]) -> dict:
     """GraphDetector on the committed export of the frozen twin
     (tests/fixtures/ultraface_twin_rfb320.onnx, float32) on the 16 frames
@@ -1892,6 +1951,320 @@ def check_graph(rec: dict) -> None:
                          f"{rec['launches_two_replicas']} launches, "
                          f"identical per shard "
                          f"{rec['two_replicas_identical_per_shard']}")
+
+
+def qdq_path(device, jpegs: list[bytes]) -> dict:
+    """GraphDetector on the committed int8 QDQ export of the frozen twin
+    (tests/fixtures/ultraface_twin_rfb320_qdq.onnx, float32) on the 16
+    frames of 4b: run_device with one NMS launch a call and its packed
+    output bit-identical to the plain scan's; its four tail programs one
+    launch each; to_mesh([device, device]) bit-identical per 8-row shard
+    with two launches a call; card against CPU on 2 frames by
+    `qdq_agreement` (the CPU tests' bar); box parity against the float
+    GraphDetector printed; the nodes a call and how many are Q/DQ, host
+    copies a call; ms a batch in turns with the float GraphDetector, host
+    ms a call of each, the profiler's device time and ops a call."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import (detect_program,
+                                                  unpack_detections)
+    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+    from infercam_onnx_tpu_torch.ops import nms
+
+    cfg = DetectorConfig(variant="RFB-320", compute_dtype="float32")
+    qdq = GraphDetector(str(QDQ_ONNX), cfg, device=device)
+    graph = GraphDetector(str(GRAPH_ONNX), cfg, device=device)
+    frames_np = np.stack(native_jpeg.load().decode_batch(jpegs))
+    frames = torch.from_numpy(frames_np).to(device)
+    b, h, w, _ = frames.shape
+    qdq.warmup(b, h, w)
+    graph.warmup(b, h, w)
+    ops = collections.Counter(n.op_type for n in qdq.executor._nodes)
+    out = {"onnx": str(QDQ_ONNX.relative_to(REPO)), "batch": b,
+           "frame": [w, h], "dtype": "float32",
+           "graph_nodes": len(qdq.graph.nodes),
+           "graph_nodes_a_call": qdq.executor.nodes_run,
+           "qdq_nodes_a_call": ops["QuantizeLinear"]
+           + ops["DequantizeLinear"],
+           "float_graph_nodes_a_call": graph.executor.nodes_run}
+
+    def launches_of(call):
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        result = call()
+        torch.cuda.synchronize()
+        return result, nms.kernel.launches
+
+    packed, out["launches"] = launches_of(
+        lambda: qdq.run_device(frames, pack_output=True))
+    out["host_copies_a_call"] = qdq.executor.host_copies
+    out["sanity"] = check_packed(packed, cfg.min_confidence)
+    r_h, r_w = qdq.preprocessor.matrices(w, h)
+    plain = detect_program(qdq.model, qdq.priors, frames, r_h, r_w,
+                           pack_output=True, nms_impl="scan",
+                           **qdq._thresholds())
+    out["identical_kernel_vs_plain"] = bool(torch.equal(plain, packed))
+    floats = graph.run_device(frames, pack_output=True)
+    out["parity_vs_float_graph"] = parity_report(
+        unpack_detections(packed.cpu().numpy()),
+        unpack_detections(floats.cpu().numpy())).as_dict()
+
+    cpu = GraphDetector(str(QDQ_ONNX), cfg, device="cpu")
+    out["cuda_vs_cpu"] = qdq_agreement(
+        qdq.run_device(frames[:2], pack_output=True),
+        cpu.run_device(frames_np[:2], pack_output=True), cfg.min_confidence)
+
+    progs = replica_programs(device, jpegs)
+    out["by_program"] = {}
+    for name in GRAPH_TAILS:
+        got, launches = launches_of(lambda: progs[name](qdq, slice(None)))
+        out["by_program"][name] = {
+            "launches": launches,
+            "sanity": check_packed(_packed(got, name), cfg.min_confidence)}
+
+    two = qdq.to_mesh([device, device])
+    got_two, out["launches_two_replicas"] = launches_of(
+        lambda: two.run_device(frames, pack_output=True))
+    out["two_replicas_identical_per_shard"] = outputs_equal(
+        got_two, concat_outputs([qdq.run_device(frames[r], pack_output=True)
+                                 for r in (slice(0, 8), slice(8, 16))]))
+
+    calls = {"qdq": lambda: qdq.run_device(frames, pack_output=True),
+             "float_graph": lambda: graph.run_device(frames,
+                                                     pack_output=True)}
+    out["ms_per_batch_in_turns"] = in_turns(calls)
+    out["host_ms_per_call"] = {n: host_call_ms(c) for n, c in calls.items()}
+    for n, c in calls.items():
+        prof = profile_device(c, 10)
+        out.setdefault("profile", {})[n] = {
+            "device_busy_ms_per_batch": prof["device_ms"],
+            "profiled_wall_ms_per_batch": prof["wall_ms"],
+            "device_idle_share": prof["idle_share"],
+            "device_ops_per_batch": prof["device_ops_per_iter"],
+            "top_device_ms": prof["top"][:5]}
+    return out
+
+
+def check_qdq(rec: dict) -> None:
+    """The QDQ phase's failure conditions."""
+    if rec["launches"] != 1 or not rec["sanity"]["ok"]:
+        raise SystemExit(f"qdq run_device: {rec['launches']} nms launches "
+                         f"(not 1) or failed sanity {rec['sanity']}")
+    if not rec["identical_kernel_vs_plain"]:
+        raise SystemExit("qdq run_device: kernel and plain NMS differ")
+    if rec["host_copies_a_call"]:
+        raise SystemExit(f"qdq run_device copied {rec['host_copies_a_call']} "
+                         f"values from the host")
+    if not rec["cuda_vs_cpu"]["ok"]:
+        raise SystemExit(f"qdq run_device on the card differs from the "
+                         f"CPU's: {rec['cuda_vs_cpu']}")
+    for name, r in rec["by_program"].items():
+        if r["launches"] != 1 or not r["sanity"]["ok"]:
+            raise SystemExit(f"qdq {name}: {r['launches']} nms launches or "
+                             f"failed sanity {r['sanity']}")
+    if rec["launches_two_replicas"] != 2 or not rec[
+            "two_replicas_identical_per_shard"]:
+        raise SystemExit("qdq to_mesh over two replicas: "
+                         f"{rec['launches_two_replicas']} launches, "
+                         f"identical per shard "
+                         f"{rec['two_replicas_identical_per_shard']}")
+
+
+# -- the graph runtime's other op families, card against CPU --------------
+
+OP_EXPORTS = {
+    # committed export: (input shapes, the CPU tests' tolerance)
+    "crnn_opset13.onnx": ([(2, 1, 32, 24)], 1e-4),
+    "norms_activations_opset18.onnx": ([(2, 6, 5, 4)], 1e-4),
+    "einsum_logsoftmax_cumsum_opset13.onnx": ([(2, 3, 4), (2, 4, 5)], 1e-5),
+}
+
+
+def _control_graphs():
+    """Hand-built control flow (the port's reader classes): a
+    data-dependent If, a data-dependent Loop (x doubles while x < 10) and
+    a Scan (a running sum)."""
+    import numpy as np
+
+    from infercam_onnx_tpu_torch.models.onnx_reader import (OnnxGraph,
+                                                            OnnxNode,
+                                                            OnnxValueInfo)
+
+    def info(name, elem=1, shape=()):
+        return OnnxValueInfo(name, elem, list(shape))
+
+    def branch(op, const):
+        return OnnxGraph(nodes=[OnnxNode(op, op, ["x", "k"], ["y"], {})],
+                         initializers={"k": np.float32(const)}, inputs=[],
+                         outputs=[info("y", shape=[3])])
+
+    if_graph = OnnxGraph(
+        nodes=[OnnxNode("ReduceSum", "s", ["x"], ["sum"], {"keepdims": 0}),
+               OnnxNode("Greater", "g", ["sum", "zero"], ["pos"], {}),
+               OnnxNode("If", "pick", ["pos"], ["out"], {
+                   "then_branch": branch("Mul", 2.0),
+                   "else_branch": branch("Sub", 1.0)})],
+        initializers={"zero": np.float32(0.0)}, inputs=[info("x", shape=[3])],
+        outputs=[info("out", shape=[3])])
+    body = OnnxGraph(
+        nodes=[OnnxNode("Mul", "dbl", ["x_in", "two"], ["x_out"], {}),
+               OnnxNode("Less", "chk", ["x_out", "limit"], ["cond_out"], {})],
+        initializers={"two": np.float32(2.0)},
+        inputs=[info("iter", 7), info("cond_in", 9), info("x_in")],
+        outputs=[info("cond_out", 9), info("x_out")])
+    loop_graph = OnnxGraph(
+        nodes=[OnnxNode("Less", "c0", ["x", "limit"], ["go"], {}),
+               OnnxNode("Loop", "L", ["", "go", "x"], ["final"],
+                        {"body": body})],
+        initializers={"limit": np.float32(10.0)}, inputs=[info("x")],
+        outputs=[info("final")])
+    scan_body = OnnxGraph(
+        nodes=[OnnxNode("Add", "acc", ["s_in", "x_t"], ["s_out"], {}),
+               OnnxNode("Identity", "y", ["s_out"], ["y_t"], {})],
+        initializers={}, inputs=[info("s_in"), info("x_t")],
+        outputs=[info("s_out"), info("y_t")])
+    scan_graph = OnnxGraph(
+        nodes=[OnnxNode("Scan", "S", ["init", "xs"], ["final", "ys"],
+                        {"body": scan_body, "num_scan_inputs": 1})],
+        initializers={}, inputs=[info("init"), info("xs", shape=[None])],
+        outputs=[info("final"), info("ys", shape=[None])])
+    return if_graph, loop_graph, scan_graph
+
+
+def graph_ops(device) -> dict:
+    """Each op family the graph runtime gained beyond its CNN set, on the
+    card against the port on the CPU, float32 with TF32 off
+    (`config.full_float32`): the committed CRNN, norms/activations and
+    einsum/logsoftmax/cumsum exports; gather/scatter, GridSample and
+    RoiAlign on seeded inputs; a data-dependent If and Loop inside
+    torch.func.vmap and a Scan; MatMulInteger, ConvInteger and QLinearConv
+    bit-equal. Each its largest difference and its tolerance."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import full_float32
+    from infercam_onnx_tpu_torch.models import onnx_exec as px
+    from infercam_onnx_tpu_torch.models.onnx_reader import (OnnxNode,
+                                                            read_onnx_graph)
+
+    rng = np.random.default_rng(9)
+    cpu = torch.device("cpu")
+    out = {}
+
+    def on(device_, args):
+        return [torch.from_numpy(np.array(a)).to(device_) for a in args]
+
+    def record(name, card, host, tol):
+        card = [c.cpu() for c in _outputs(card)]
+        host = _outputs(host)
+        exact = all(c.dtype == h.dtype and torch.equal(c, h)
+                    for c, h in zip(card, host))
+        diff = max(float((c.double() - h.double()).abs().max())
+                   if c.numel() else 0.0 for c, h in zip(card, host))
+        shapes = all(c.shape == h.shape for c, h in zip(card, host))
+        out[name] = {"max_abs_diff": diff, "tolerance": tol,
+                     "bit_equal": exact,
+                     "ok": shapes and (exact if tol == 0 else diff <= tol)}
+
+    with full_float32():
+        for name, (shapes, tol) in OP_EXPORTS.items():
+            graph = read_onnx_graph(str(REPO / "tests" / "fixtures" / name))
+            ex = px.GraphExecutor(graph)
+            inputs = [rng.normal(size=s).astype(np.float32) * 0.5
+                      for s in shapes]
+            host = ex(*on(cpu, inputs))
+            card = ex.to(device)(*on(device, inputs))
+            record(name.removesuffix(".onnx"), card, host, tol)
+
+        x = rng.normal(size=(1, 3, 8, 10)).astype(np.float32)
+        rois = np.array([[1.0, 1.0, 7.0, 5.0], [0.0, 0.0, 3.0, 2.0],
+                         [2.0, 0.5, 9.5, 7.5]], np.float32)
+        cases = {
+            "GatherElements": ("GatherElements", dict(axis=1), (
+                rng.normal(size=(4, 6)).astype(np.float32),
+                rng.integers(-6, 6, size=(4, 9))), 0),
+            "GatherND_batch": ("GatherND", dict(batch_dims=1), (
+                rng.normal(size=(3, 5, 4)).astype(np.float32),
+                rng.integers(0, 5, size=(3, 2, 1))), 0),
+            "ScatterElements_add": ("ScatterElements", dict(
+                axis=0, reduction=b"add"), (
+                rng.normal(size=(5, 4)).astype(np.float32),
+                rng.integers(0, 5, size=(8, 4)),
+                rng.normal(size=(8, 4)).astype(np.float32)), 1e-5),
+            "ScatterND_max": ("ScatterND", dict(reduction=b"max"), (
+                rng.normal(size=(6, 3)).astype(np.float32),
+                rng.integers(0, 6, size=(5, 1)),
+                rng.normal(size=(5, 3)).astype(np.float32)), 0),
+            "GridSample_bilinear": ("GridSample", dict(mode=b"bilinear"), (
+                rng.normal(size=(2, 3, 6, 7)).astype(np.float32),
+                rng.uniform(-1.4, 1.4, size=(2, 4, 5, 2)).astype(
+                    np.float32)), 1e-5),
+            "GridSample_bicubic_reflection": ("GridSample", dict(
+                mode=b"bicubic", padding_mode=b"reflection"), (
+                rng.normal(size=(2, 3, 6, 7)).astype(np.float32),
+                rng.uniform(-1.4, 1.4, size=(2, 4, 5, 2)).astype(
+                    np.float32)), 1e-4),
+            "GridSample_3d": ("GridSample", dict(mode=b"nearest",
+                                                 padding_mode=b"border"), (
+                rng.normal(size=(2, 2, 4, 5, 6)).astype(np.float32),
+                rng.uniform(-1.4, 1.4, size=(2, 3, 2, 4, 3)).astype(
+                    np.float32)), 1e-5),
+            "RoiAlign": ("RoiAlign", dict(output_height=2, output_width=3,
+                                          sampling_ratio=2),
+                         (x, rois, np.zeros(3, np.int64)), 1e-5),
+            "RoiAlign_adaptive_max": ("RoiAlign", dict(
+                output_height=2, output_width=3, mode=b"max"),
+                (x, rois, np.zeros(3, np.int64)), 1e-5),
+            "MatMulInteger": ("MatMulInteger", {}, (
+                rng.integers(0, 256, size=(64, 300)).astype(np.uint8),
+                rng.integers(-128, 128, size=(300, 48)).astype(np.int8),
+                np.uint8(113), np.int8(-7)), 0),
+            "ConvInteger": ("ConvInteger", dict(pads=[1, 1, 1, 1]), (
+                rng.integers(0, 256, size=(2, 64, 20, 24)).astype(np.uint8),
+                rng.integers(-128, 128, size=(32, 64, 3, 3)).astype(np.int8),
+                np.uint8(100), np.int8(5)), 0),
+            "QLinearConv": ("QLinearConv", dict(pads=[1, 1, 1, 1], group=2), (
+                rng.integers(0, 256, size=(2, 64, 20, 24)).astype(np.uint8),
+                np.float32(0.02), np.uint8(120),
+                rng.integers(-128, 128, size=(32, 32, 3, 3)).astype(np.int8),
+                rng.uniform(1e-3, 1e-2, size=32).astype(np.float32),
+                np.zeros(32, np.int8), np.float32(0.05), np.uint8(20),
+                rng.integers(-2000, 2000, size=32).astype(np.int32)), 0),
+        }
+        for name, (op, attrs, args, tol) in cases.items():
+            node = OnnxNode(op, name, [], ["y"], attrs)
+            host = px._OPS[op](node, *on(cpu, args))
+            card = px._OPS[op](node, *on(device, args))
+            record(name, card, host, tol)
+
+        if_graph, loop_graph, scan_graph = _control_graphs()
+        xs = rng.normal(size=(16, 3)).astype(np.float32)
+        starts = rng.uniform(0.01, 20.0, size=16).astype(np.float32)
+        seqs = rng.normal(size=(16, 7)).astype(np.float32)
+        for name, graph, args in (
+                ("If_traced_under_vmap", if_graph, (xs,)),
+                ("Loop_data_dependent_under_vmap", loop_graph, (starts,)),
+                ("Scan_under_vmap", scan_graph, (np.zeros(16, np.float32),
+                                                 seqs))):
+            ex = px.GraphExecutor(graph)
+            host = torch.func.vmap(ex)(*on(cpu, args))
+            card = torch.func.vmap(ex.to(device))(*on(device, args))
+            record(name, card, host, 1e-6)
+            out[name]["host_copies_a_call"] = ex.host_copies
+    return out
+
+
+def check_graph_ops(rec: dict) -> None:
+    bad = {k: v for k, v in rec.items()
+           if not v["ok"] or v.get("host_copies_a_call", 0)}
+    if bad:
+        raise SystemExit(f"graph ops on the card differ from the CPU's: {bad}")
 
 
 SERVE_STREAMS = 16
@@ -2049,7 +2422,7 @@ async def get_json(port: int, path: str) -> dict:
 
 async def _serve(device, decode_mode: str, annotate_mode: str, *,
                  streams: int, fps: float, frame: tuple[int, int],
-                 pics: pathlib.Path, graph: bool = False,
+                 pics: pathlib.Path, onnx: pathlib.Path | None = None,
                  **engine_kw) -> dict:
     import asyncio
 
@@ -2063,11 +2436,11 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
     from infercam_onnx_tpu_torch.serving.router import stream_key
     from infercam_onnx_tpu_torch.utils.profiling import STAGES
 
-    if graph:
+    if onnx:
         from infercam_onnx_tpu_torch.config import DetectorConfig
         from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
 
-        det = GraphDetector(str(GRAPH_ONNX),
+        det = GraphDetector(str(onnx),
                             DetectorConfig(compute_dtype="float32"),
                             device=device)
     else:
@@ -2221,7 +2594,8 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
 
     e2e = stages.get("e2e", {})
     return {
-        "model": "RFB-320", "runtime": "graph" if graph else "native",
+        "model": "RFB-320", "runtime": "graph" if onnx else "native",
+        "onnx": str(onnx.relative_to(REPO)) if onnx else None,
         "dtype": det.config.compute_dtype, "decode_mode": decode_mode,
         "annotate_mode": annotate_mode, "streams": streams,
         "fps_per_stream": fps, "frame": list(frame),
@@ -2261,10 +2635,10 @@ async def _serve(device, decode_mode: str, annotate_mode: str, *,
 def serve_phase(device, decode_mode: str = "pixels",
                 annotate_mode: str = "host", *, streams: int = SERVE_STREAMS,
                 fps: float = SERVE_FPS, frame: tuple[int, int] = (640, 480),
-                pics: pathlib.Path = SYNTH_PICS, graph: bool = False,
-                **engine_kw) -> dict:
+                pics: pathlib.Path = SYNTH_PICS,
+                onnx: pathlib.Path | None = None, **engine_kw) -> dict:
     """The port's server in this process on ``device``: RFB-320 bfloat16
-    on the frozen weights (with ``graph``, GraphDetector on the committed
+    on the frozen weights (with ``onnx``, GraphDetector on that committed
     export of the same weights, float32), buckets 1-16, queue 32, a 4 ms
     gather window,
     coalescing, ``decode_mode`` decode at scale 1 and ``annotate_mode``
@@ -2281,7 +2655,7 @@ def serve_phase(device, decode_mode: str = "pixels",
 
     return asyncio.run(_serve(device, decode_mode, annotate_mode,
                               streams=streams, fps=fps, frame=frame,
-                              pics=pics, graph=graph, **engine_kw))
+                              pics=pics, onnx=onnx, **engine_kw))
 
 
 def check_tiled(tiled: dict) -> None:
@@ -2839,14 +3213,22 @@ def main() -> int:
     emit({"phase": "graph_path", "gpu": name, "power_limit": power,
           "variant": "RFB-320", **graph})
     check_graph(graph)
+    qdq = qdq_path(device, jpegs)
+    emit({"phase": "qdq_path", "gpu": name, "power_limit": power,
+          "variant": "RFB-320", **qdq})
+    check_qdq(qdq)
+    ops = graph_ops(device)
+    emit({"phase": "graph_ops", "gpu": name, "power_limit": power, **ops})
+    check_graph_ops(ops)
 
     serves = {}
-    rec = serves["serve_graph"] = serve_phase(device, graph=True)
-    emit({"phase": "serve_graph", "gpu": name, "power_limit": power, **rec})
-    check_serve(rec)
-    if not rec["checked_batch_kinds"].get("pixels"):
-        raise SystemExit("no checked batch of the serve_graph server took "
-                         "its pixels unit")
+    for phase, onnx in (("serve_graph", GRAPH_ONNX), ("serve_qdq", QDQ_ONNX)):
+        rec = serves[phase] = serve_phase(device, onnx=onnx)
+        emit({"phase": phase, "gpu": name, "power_limit": power, **rec})
+        check_serve(rec)
+        if not rec["checked_batch_kinds"].get("pixels"):
+            raise SystemExit(f"no checked batch of the {phase} server took "
+                             f"its pixels unit")
     for phase, decode_mode, annotate_mode, unit in (
             ("serve", "pixels", "host", "pixels"),
             ("serve_ycbcr", "ycbcr", "host", "ycbcr"),
@@ -2905,6 +3287,10 @@ def main() -> int:
             **{f"graph_{prog}": rec["launches"]
                for prog, rec in graph["by_program"].items()},
             "graph_2x_detect_program": graph["launches_two_replicas"],
+            "qdq_detect_program": qdq["launches"],
+            **{f"qdq_{prog}": rec["launches"]
+               for prog, rec in qdq["by_program"].items()},
+            "qdq_2x_detect_program": qdq["launches_two_replicas"],
             **{phase: rec["nms_launches"] for phase, rec in serves.items()},
             "serve_lockstep": sum(m["window_nms_launches"]
                                   for m in lockstep["members"])},

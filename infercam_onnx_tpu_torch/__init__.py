@@ -10,10 +10,11 @@ greedy NMS -> packed ``[B, D, 6]`` output) with its weight loaders, the
 packed-YCbCr and coefficient inputs and the device annotate tails, the
 serving tier (``serve``, every decode and annotate mode), tiling,
 data-parallel replicas and lockstep clusters, the ``detect`` CLI and the
-goldens check, and the ONNX graph runtime's convolutional op set
-(`models.onnx_exec.GraphExecutor`, `GraphDetector`, the structural
-converter ``models.convert.params_from_onnx``, ``--onnx`` and
-``--runtime graph``).
+goldens check, and the ONNX graph runtime
+(`models.onnx_exec.GraphExecutor` with the JAX executor's whole op
+table, the int8 quantized ops and If/Loop/Scan included,
+`GraphDetector`, the structural converter
+``models.convert.params_from_onnx``, ``--onnx`` and ``--runtime graph``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no GPU and no explicit CPU request they raise.

@@ -1,5 +1,5 @@
 """Execute an ONNX graph with PyTorch: the port of
-``infercam_onnx_tpu/models/onnx_exec.py``'s CNN op set.
+``infercam_onnx_tpu/models/onnx_exec.py``.
 
 The reference loads the downloaded ONNX graph and *runs* it (tract). The
 JAX package does the same with an interpreter over ``jax.numpy``; this is
@@ -9,11 +9,14 @@ that maps ``[1, 3, H, W]`` images to ``(scores, boxes)`` inside the port's
 detect programs (preprocess, the graph, filter + greedy NMS through
 ``csrc/nms.cu``).
 
-The op set is the JAX table's convolutional slice: the 76 entries from
-``Conv`` to ``ArgMin`` plus ``Range`` and ``Tile``. Every other op, and the
-control flow ops ``If``/``Loop``/``Scan``, raises when the executor is
-built (ROADMAP A.8b lists them), as the JAX executor raises on an op it
-does not know.
+The op set is the JAX table's whole: the convolutional ops, the norms,
+the RNN family (a plain time loop: ONNX gate orders, ``clip``,
+``sequence_lens``), the sequence, gather/scatter, GridSample and RoiAlign
+ops, the int8 quantized family (QDQ exports; the integer convolution
+and matmul accumulate exactly in float64), and the control flow ops
+``If``/``Loop``/``Scan``, whose bodies are child modules with their own
+constants. An op outside the table raises when the executor is built,
+with the JAX executor's message.
 
 Values are NumPy where they are concrete and tensors where they are data,
 as in the JAX interpreter: ``Shape -> Gather -> Unsqueeze -> Concat ->
@@ -21,9 +24,15 @@ Reshape`` chains stay NumPy and resolve to static shapes, and a NumPy value
 that meets a tensor becomes a tensor on the tensor's device, float64 as
 float32 (the JAX package runs without x64). The graph's constants (its
 initializers, ``Constant`` nodes and the nodes computed from them alone,
-which the build evaluates once) are registered buffers of the executor:
-they reach a device with ``.to(device)`` or a deep copy, once, and no call
-copies them from the host again.
+which the build evaluates once: a QDQ export's int8 weights are
+dequantized there) are registered buffers of the executor: they reach a
+device with ``.to(device)`` or a deep copy, once, and no call copies them
+from the host again. A condition or trip count of control flow is read
+on the host where it is NumPy or a tensor outside `torch.func.vmap`; a
+condition batched under vmap takes both branches and a select (If) or a
+loop that runs while any image's condition holds, each image keeping its
+values once its own condition fails (Loop), as ``jax.vmap`` of the JAX
+executor does.
 """
 
 from __future__ import annotations
@@ -71,10 +80,14 @@ def _is_concrete(*vals) -> bool:
 
 
 def _t(v) -> torch.Tensor:
-    """``v`` as a tensor: a tensor as it is; a NumPy value or a Python
-    number copied to the executor's device, float64 as float32."""
+    """``v`` as a tensor: a tensor as it is; a constant of the running
+    graph by its buffer; another NumPy value or a Python number copied to
+    the executor's device, float64 as float32."""
     if isinstance(v, torch.Tensor):
         return v
+    at = (getattr(_STATE, "buffer_of", None) or {}).get(id(v))
+    if at is not None:
+        return at[0]._buffers[at[1]]
     _STATE.converted = getattr(_STATE, "converted", 0) + 1
     return _to_tensor(v, _device())
 
@@ -85,7 +98,7 @@ def _to_tensor(v, device: torch.device) -> torch.Tensor:
         a = a.astype(np.float32)
     elif a.dtype in (np.uint16, np.uint32, np.uint64):
         a = a.astype(np.int64)
-    return torch.tensor(np.ascontiguousarray(a), device=device)
+    return torch.tensor(np.asarray(a, order="C"), device=device)
 
 
 def _is_int(v) -> bool:
@@ -809,21 +822,22 @@ def _slice(node: OnnxNode, x, starts=None, ends=None, axes=None,
     return x[tuple(slices)]
 
 
-def _softmax(node: OnnxNode, x):
+def _softmax(node: OnnxNode, x, log: bool = False):
     # opset < 13: flattened-2D semantics: softmax over ALL dims from
     # `axis` on (default axis 1), not just one axis. The executor records
-    # the model opset on the node at build time.
+    # the model opset on the node at build time (subgraphs inherit it).
+    fn = torch.log_softmax if log else torch.softmax
     opset = node.attrs.get("_opset", 13)
     if opset < 13:
         axis = int(node.attrs.get("axis", 1)) % max(x.ndim, 1)
         shape = tuple(x.shape)
         lead = int(np.prod(shape[:axis])) if axis else 1
-        return torch.softmax(_t(x).reshape(lead, -1), dim=-1).reshape(shape)
+        return fn(_t(x).reshape(lead, -1), dim=-1).reshape(shape)
     axis = node.attrs.get("axis", -1)
-    if _is_concrete(x):
+    if _is_concrete(x) and not log:
         e = np.exp(x - x.max(axis=axis, keepdims=True))
         return e / e.sum(axis=axis, keepdims=True)
-    return torch.softmax(x, dim=axis)
+    return fn(_t(x), dim=axis)
 
 
 def _div(a, b):
@@ -959,6 +973,1174 @@ def _tile(node: OnnxNode, x, reps):
     return np.tile(x, reps) if _is_concrete(x) else torch.tile(x, reps)
 
 
+def _host(v):
+    """A value read on the host: NumPy as it is, a tensor copied back."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return v
+
+
+def _batched(v) -> bool:
+    """A tensor that carries a `torch.func.vmap` batch: its value differs
+    per image, so the host cannot read one value of it."""
+    return isinstance(v, torch.Tensor) and \
+        torch._C._functorch.is_batchedtensor(v)
+
+
+def _readable(*vals) -> bool:
+    """Values the host can read (NumPy, or tensors outside vmap's batch):
+    JAX's concrete values, and the tensors it would read eagerly."""
+    return all(_is_concrete(v) or (isinstance(v, torch.Tensor)
+                                   and not _batched(v)) for v in vals)
+
+
+def _any(v) -> bool:
+    """Whether ``v`` holds for any image of every enclosing vmap."""
+    while _batched(v):
+        v = torch._C._functorch.get_unwrapped(v)
+    return bool(v.any())
+
+
+def _topk(node: OnnxNode, x, k=None):
+    if k is None:  # opset <= 9: k as attribute
+        k = node.attrs["k"]
+    elif not _is_concrete(k):
+        raise ValueError(f"TopK with traced K ({node.name})")
+    k = int(np.asarray(k).reshape(()))
+    axis = node.attrs.get("axis", -1)
+    largest = bool(node.attrs.get("largest", 1))
+    if _is_concrete(x):
+        xs = np.asarray(x)
+        # negation of unsigned dtypes wraps instead of reversing order
+        key = (xs.astype(np.int64)
+               if np.issubdtype(xs.dtype, np.unsignedinteger) else xs)
+        order = np.argsort(-key if largest else key, axis=axis,
+                           kind="stable")
+        idx = np.take(order, np.arange(k), axis=axis)
+        return (np.take_along_axis(xs, idx, axis=axis),
+                idx.astype(np.int64))
+    moved = torch.movedim(_t(x), axis, -1)
+    key = moved.to(torch.int64) if moved.dtype == torch.uint8 else moved
+    # a stable sort keeps the lower index first on ties, as lax.top_k
+    idx = torch.sort(key, dim=-1, descending=largest,
+                     stable=True).indices[..., :k]
+    vals = torch.gather(moved, -1, idx)
+    return torch.movedim(vals, -1, axis), torch.movedim(idx, -1, axis)
+
+
+def _nms_onnx(node: OnnxNode, boxes, scores, max_out=None,
+              iou_thresh=None, score_thresh=None):
+    """ONNX NonMaxSuppression: dynamic-length selected_indices [S, 3]
+    (batch, class, box). The output SHAPE depends on the data, so the op
+    runs on the host (NumPy, as the JAX package's) on values it can read:
+    under vmap it raises (the fixed-shape NMS of ``ops/postprocess.py``
+    is the device path)."""
+    if not _readable(boxes, scores):
+        raise ValueError(
+            f"NonMaxSuppression under vmap is unsupported ({node.name}) "
+            "— dynamic output shape; use the fixed-shape NMS "
+            "(ops/postprocess.py) for on-device pipelines")
+    boxes, scores, max_out, iou_thresh, score_thresh = (
+        _host(v) for v in (boxes, scores, max_out, iou_thresh,
+                           score_thresh))
+    max_out = (0 if max_out is None
+               else int(np.asarray(max_out).reshape(())))
+    if max_out == 0:
+        # spec: max_output_boxes_per_class defaults to 0 = NO output
+        return np.zeros((0, 3), np.int64)
+    iou_thresh = (0.0 if iou_thresh is None
+                  else float(np.asarray(iou_thresh).reshape(())))
+    score_thresh = (None if score_thresh is None
+                    else float(np.asarray(score_thresh).reshape(())))
+    boxes = np.asarray(boxes, np.float32)
+    scores = np.asarray(scores, np.float32)
+    if node.attrs.get("center_point_box", 0):
+        cx, cy, w, h = (boxes[..., i] for i in range(4))
+        boxes = np.stack([cy - h / 2, cx - w / 2,
+                          cy + h / 2, cx + w / 2], axis=-1)
+    else:
+        # corners may be flipped per spec; canonicalize
+        y1 = np.minimum(boxes[..., 0], boxes[..., 2])
+        y2 = np.maximum(boxes[..., 0], boxes[..., 2])
+        x1 = np.minimum(boxes[..., 1], boxes[..., 3])
+        x2 = np.maximum(boxes[..., 1], boxes[..., 3])
+        boxes = np.stack([y1, x1, y2, x2], axis=-1)
+    selected = []
+    for b in range(scores.shape[0]):
+        for c in range(scores.shape[1]):
+            s = scores[b, c]
+            order = np.argsort(-s, kind="stable")
+            if score_thresh is not None:
+                order = order[s[order] > score_thresh]
+            kept: list[int] = []
+            for i in order:
+                if len(kept) >= max_out:
+                    break
+                bi = boxes[b, i]
+                ok = True
+                for j in kept:
+                    bj = boxes[b, j]
+                    yy1 = max(bi[0], bj[0])
+                    xx1 = max(bi[1], bj[1])
+                    yy2 = min(bi[2], bj[2])
+                    xx2 = min(bi[3], bj[3])
+                    inter = max(0.0, yy2 - yy1) * max(0.0, xx2 - xx1)
+                    area_i = (bi[2] - bi[0]) * (bi[3] - bi[1])
+                    area_j = (bj[2] - bj[0]) * (bj[3] - bj[1])
+                    union = area_i + area_j - inter
+                    if union > 0 and inter / union > iou_thresh:
+                        ok = False
+                        break
+                if ok:
+                    kept.append(int(i))
+            selected.extend([b, c, i] for i in kept)
+    return np.asarray(selected, np.int64).reshape(-1, 3)
+
+
+def _instance_norm(node: OnnxNode, x, scale, bias):
+    eps = node.attrs.get("epsilon", 1e-5)
+    x, scale, bias = _t(x), _t(scale), _t(bias)
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (scale.reshape(shape) * (x - mean)
+            / torch.sqrt(var + eps) + bias.reshape(shape))
+
+
+def _layer_norm(node: OnnxNode, x, scale, bias=None):
+    eps = node.attrs.get("epsilon", 1e-5)
+    x = _t(x)
+    axes = tuple(range(node.attrs.get("axis", -1) % x.ndim, x.ndim))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, keepdim=True, correction=0)
+    inv_std = 1.0 / torch.sqrt(var + eps)
+    out = (x - mean) * inv_std * _t(scale)
+    if bias is not None:
+        out = out + _t(bias)
+    if len(node.outputs) == 1:
+        return out
+    # spec: optional Mean and InvStdDev outputs (kept reduced-rank with
+    # keepdims, the shape the spec's "reduced" wording implies)
+    return (out, mean, inv_std)[:len(node.outputs)]
+
+
+def _group_norm(node: OnnxNode, x, scale, bias):
+    eps = node.attrs.get("epsilon", 1e-5)
+    groups = int(node.attrs["num_groups"])
+    x, scale, bias = _t(x), _t(scale), _t(bias)
+    b, c = x.shape[0], x.shape[1]
+    g = x.reshape((b, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, g.ndim))
+    mean = g.mean(dim=axes, keepdim=True)
+    var = g.var(dim=axes, keepdim=True, correction=0)
+    out = ((g - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    # opset 18 passes per-GROUP scale/bias [num_groups]; opset 21 (and
+    # torch) per-CHANNEL [C]: broadcast the per-group form up
+    if scale.shape[0] == groups and groups != c:
+        scale = torch.repeat_interleave(scale, c // groups)
+        bias = torch.repeat_interleave(bias, c // groups)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return scale.reshape(shape) * out + bias.reshape(shape)
+
+
+def _shrink(node: OnnxNode, x):
+    lambd = node.attrs.get("lambd", 0.5)
+    bias = node.attrs.get("bias", 0.0)
+    x = _t(x)
+    return torch.where(x > lambd, x - bias,
+                       torch.where(x < -lambd, x + bias, 0.0))
+
+
+def _is_inf(node: OnnxNode, x):
+    def fn(xp, x):
+        return (xp.isinf(x)
+                & ((x > 0) if not node.attrs.get("detect_negative", 1)
+                   else (x == x))
+                & ((x < 0) if not node.attrs.get("detect_positive", 1)
+                   else (x == x)))
+    return fn(np, x) if _is_concrete(x) else fn(torch, x)
+
+
+def _eye_like(node: OnnxNode, x):
+    k = node.attrs.get("k", 0)
+    n, m = int(x.shape[0]), int(x.shape[1])
+    if _is_concrete(x):
+        dt = (_ONNX_NP_DTYPES[node.attrs["dtype"]] if "dtype" in node.attrs
+              else np.asarray(x).dtype)
+        return np.eye(n, m, k=k, dtype=dt)
+    dt = (_ONNX_TORCH_DTYPES[node.attrs["dtype"]] if "dtype" in node.attrs
+          else x.dtype)
+    rows = torch.arange(n, device=x.device)[:, None]
+    return (rows + k == torch.arange(m, device=x.device)[None, :]).to(dt)
+
+
+def _trilu(node: OnnxNode, x, k=None):
+    k = int(np.asarray(k).reshape(())) if k is not None else 0
+    upper = node.attrs.get("upper", 1)
+    if _is_concrete(x):
+        return (np.triu if upper else np.tril)(x, k)
+    return (torch.triu if upper else torch.tril)(x, k)
+
+
+def _one_hot(node: OnnxNode, idx, depth, values):
+    if not _is_concrete(depth):
+        raise ValueError(f"OneHot with traced depth ({node.name})")
+    d = int(np.asarray(depth).reshape(()))
+    axis = node.attrs.get("axis", -1)
+    if _is_concrete(idx, values):
+        idx, off_on, hot = np.asarray(idx), np.asarray(values), np.arange(d)
+        moveaxis, where = np.moveaxis, np.where
+    else:
+        idx, off_on = _t(idx), _t(values)
+        hot = torch.arange(d, device=idx.device)
+        moveaxis, where = torch.movedim, torch.where
+    idx = where(idx < 0, idx + d, idx)  # negative indices per spec
+    # broadcast compare along a new trailing axis, then move into place
+    out = where(idx[..., None] == hot, off_on[1], off_on[0])
+    if axis != -1:
+        out = moveaxis(out, -1, axis % (idx.ndim + 1))
+    return out
+
+
+def _roi_align(node: OnnxNode, x, rois, batch_idx):
+    """RoiAlign (two-stage detector exports): average/max pooling of
+    bilinear samples over each ROI bin, with the ONNX reference kernel's
+    quirks the JAX package keeps (samples more than 1px outside the image
+    count zero, max mode takes the max of the WEIGHTED corners,
+    output_half_pixel clamps thin ROIs to 1px). All ROIs at once: [R]
+    leading every per-ROI value."""
+    mode = node.attrs.get("mode", b"avg")
+    oh = int(node.attrs.get("output_height", 1))
+    ow = int(node.attrs.get("output_width", 1))
+    ratio = int(node.attrs.get("sampling_ratio", 0))
+    scale = float(node.attrs.get("spatial_scale", 1.0))
+    coord = node.attrs.get("coordinate_transformation_mode",
+                           b"half_pixel")
+    aligned = coord == b"half_pixel"
+    offset = 0.5 if aligned else 0.0
+    adaptive = False
+    if ratio > 0:
+        rh = rw = ratio
+    else:
+        rhw = node.attrs.get("_ratio_hw")
+        if rhw is not None:
+            rh, rw = rhw
+        elif not _is_concrete(rois, batch_idx):
+            # adaptive ratio = ceil(roi_size / output) per axis is per-ROI
+            # data: a static upper-bound sample grid sized for an ROI
+            # spanning the whole feature map, each ROI's unused sample
+            # rows/cols masked out (the JAX package's traced form; an ROI
+            # wider than the whole map samples coarser than the reference)
+            adaptive = True
+            rh = max(-(-int(x.shape[2]) // oh), 1)
+            rw = max(-(-int(x.shape[3]) // ow), 1)
+        else:
+            # concrete ROIs: group them by their resolved (gh, gw) grid,
+            # one call per distinct grid
+            rois_np = np.asarray(rois, np.float32)
+            bi_np = np.asarray(batch_idx)
+            n = rois_np.shape[0]
+            c = x.shape[1]
+            if n == 0:
+                if isinstance(x, torch.Tensor):
+                    return torch.zeros((0, c, oh, ow), dtype=x.dtype,
+                                       device=x.device)
+                return np.zeros((0, c, oh, ow), np.asarray(x).dtype)
+            sizes = (rois_np[:, 2:4] - rois_np[:, 0:2]) * scale
+            gw_all = np.maximum(np.ceil(sizes[:, 0] / ow), 1).astype(int)
+            gh_all = np.maximum(np.ceil(sizes[:, 1] / oh), 1).astype(int)
+            out = [None] * n
+            for key in {(int(gh_all[k]), int(gw_all[k])) for k in range(n)}:
+                idx = [k for k in range(n)
+                       if (gh_all[k], gw_all[k]) == key]
+                sub = OnnxNode(node.op_type, node.name, node.inputs,
+                               node.outputs, dict(node.attrs, _ratio_hw=key))
+                grp = _roi_align(sub, x, rois_np[idx], bi_np[idx])
+                for j, k in enumerate(idx):
+                    out[k] = grp[j]
+            return torch.stack(out)
+    x = _t(x)
+    dev = x.device
+    h, w = int(x.shape[2]), int(x.shape[3])
+    rois = _t(rois).to(torch.float32)
+    bidx = _t(batch_idx).to(torch.int64)
+    r = rois.shape[0]
+    x1, y1, x2, y2 = (rois[:, k] * scale - offset for k in range(4))
+    roi_h, roi_w = y2 - y1, x2 - x1
+    if not aligned:
+        # legacy (output_half_pixel) mode clamps thin ROIs to 1px
+        roi_h = torch.clamp(roi_h, min=1.0)
+        roi_w = torch.clamp(roi_w, min=1.0)
+    bin_h = roi_h / oh
+    bin_w = roi_w / ow
+    # sample grid: rh x rw points per bin at bin-relative offsets
+    # (i + 0.5) / ratio per axis; adaptive mode masks the samples beyond
+    # each ROI's own ratio out of the reduction
+    sub_y = torch.arange(oh * rh, device=dev) % rh
+    sub_x = torch.arange(ow * rw, device=dev) % rw
+    if adaptive:
+        rh_d = torch.clamp(torch.ceil(roi_h / oh), 1, rh)[:, None]
+        rw_d = torch.clamp(torch.ceil(roi_w / ow), 1, rw)[:, None]
+    else:
+        rh_d, rw_d = float(rh), float(rw)
+    bins_y = torch.arange(oh * rh, device=dev) // rh
+    bins_x = torch.arange(ow * rw, device=dev) // rw
+    iy = y1[:, None] + (bins_y + (sub_y + 0.5) / rh_d) * bin_h[:, None]
+    ix = x1[:, None] + (bins_x + (sub_x + 0.5) / rw_d) * bin_w[:, None]
+    grid_ok = (sub_y < rh_d)[..., :, None] & (sub_x < rw_d)[..., None, :]
+    # samples more than 1px outside the image contribute ZERO (the ONNX
+    # reference kernel), inside ones clamp
+    ok = (((iy >= -1.0) & (iy <= h))[:, :, None]
+          & ((ix >= -1.0) & (ix <= w))[:, None, :])
+    gy = torch.clamp(iy, 0.0, h - 1.0)
+    gx = torch.clamp(ix, 0.0, w - 1.0)
+    y0 = torch.floor(gy).to(torch.int64)
+    x0 = torch.floor(gx).to(torch.int64)
+    y1i = torch.clamp(y0 + 1, max=h - 1)
+    x1i = torch.clamp(x0 + 1, max=w - 1)
+    wy = (gy - y0)[:, None, :, None]
+    wx = (gx - x0)[:, None, None, :]
+    bsel = bidx[:, None, None]
+
+    def at(yy, xx):  # [R, C, Hs, Ws]
+        return x[bsel, :, yy[:, :, None], xx[:, None, :]].permute(0, 3, 1, 2)
+
+    v00, v01, v10, v11 = at(y0, x0), at(y0, x1i), at(y1i, x0), at(y1i, x1i)
+    w00 = (1 - wy) * (1 - wx)
+    w01 = (1 - wy) * wx
+    w10 = wy * (1 - wx)
+    w11 = wy * wx
+    okc = ok[:, None]
+    gokc = (grid_ok if grid_ok.ndim == 3 else grid_ok[None])[:, None]
+    c = x.shape[1]
+    if mode == b"max":
+        # the Caffe2-lineage quirk the ONNX reference keeps: per sample,
+        # max over the four WEIGHTED corner contributions
+        v = torch.maximum(torch.maximum(w00 * v00, w01 * v01),
+                          torch.maximum(w10 * v10, w11 * v11))
+        v = torch.where(okc, v, 0.0)
+        v = torch.where(gokc, v, -float("inf"))  # grid-masked: excluded
+        return torch.amax(v.reshape(r, c, oh, rh, ow, rw), dim=(3, 5))
+    v = w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11
+    v = torch.where(okc & gokc, v, 0.0)
+    s = v.reshape(r, c, oh, rh, ow, rw).sum(dim=(3, 5))
+    if adaptive:
+        return s / (rh_d * rw_d).reshape(r, 1, 1, 1)
+    return s / (rh_d * rw_d)
+
+
+def _grid_reflect(coord, size: int, align: bool):
+    """Reflect about [0, size-1] (align) or [-0.5, size-0.5]: fold into a
+    doubled period, mirror the upper half."""
+    if align:
+        span = 2.0 * max(size - 1, 1)
+        c = torch.remainder(torch.abs(coord), span)
+        return torch.where(c > span / 2, span - c, c)
+    span = 2.0 * size
+    c = torch.remainder(coord + 0.5, span)
+    c = torch.where(c > size, span - c, c)
+    return torch.clamp(c - 0.5, 0.0, size - 1.0)
+
+
+def _grid_unnormalize(coord, size: int, align: bool, reflect: bool):
+    if align:
+        c = (coord + 1) * (size - 1) / 2
+    else:
+        c = ((coord + 1) * size - 1) / 2
+    return _grid_reflect(c, size, align) if reflect else c
+
+
+def _grid_sample(node: OnnxNode, x, grid):
+    """GridSample (opset 16+): bilinear/nearest/bicubic sampling of
+    x[B,C,H,W] at grid[B,Ho,Wo,2] locations in [-1,1] xy order, by the
+    JAX package's formula (zeros padding SELECTS 0 outside, so an inf at
+    the clamped border pixel never leaks in as inf * 0)."""
+    mode = node.attrs.get("mode", b"bilinear")
+    if mode == b"linear":
+        mode = b"bilinear"  # opset-20 rename
+    if mode == b"cubic":
+        mode = b"bicubic"  # opset-20 rename
+    pad = node.attrs.get("padding_mode", b"zeros")
+    align = bool(node.attrs.get("align_corners", 0))
+    if mode not in (b"bilinear", b"nearest", b"bicubic"):
+        raise ValueError(
+            f"GridSample mode {mode!r} unsupported ({node.name})")
+    if pad not in (b"zeros", b"border", b"reflection"):
+        raise ValueError(
+            f"GridSample padding_mode {pad!r} unsupported "
+            f"({node.name})")
+    if len(x.shape) == 5:
+        if mode == b"bicubic":
+            raise ValueError(
+                f"GridSample cubic is 4-D only per spec ({node.name})")
+        return _grid_sample_3d(node, x, grid, mode, pad, align)
+    if len(x.shape) != 4:
+        raise ValueError(
+            f"GridSample expects 4-D [B,C,H,W] or 5-D [B,C,D,H,W] "
+            f"input, got rank {len(x.shape)} ({node.name})")
+    x, grid = _t(x), _t(grid)
+    h, w = int(x.shape[2]), int(x.shape[3])
+    # bilinear/nearest reflect the CENTER coordinate (torch's
+    # compute_source_index); bicubic leaves the center untouched and
+    # folds each tap instead (torch's get_value_bounded)
+    fold = pad == b"reflection" and mode != b"bicubic"
+    gx = _grid_unnormalize(grid[..., 0], w, align, fold)  # [B, Ho, Wo]
+    gy = _grid_unnormalize(grid[..., 1], h, align, fold)
+    bsel = torch.arange(x.shape[0], device=x.device)[:, None, None]
+
+    def sample(iy, ix):
+        """x at integer (iy, ix) with the padding mode; [B,C,Ho,Wo]."""
+        inside = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+        v = x[bsel, :, torch.clamp(iy, 0, h - 1),
+              torch.clamp(ix, 0, w - 1)].permute(0, 3, 1, 2)
+        if pad == b"zeros":
+            # select, don't multiply: 0 * inf/nan at a clamped border
+            # pixel must still yield exact 0
+            v = torch.where(inside[:, None], v, 0.0)
+        return v
+
+    if mode == b"nearest":
+        return sample(torch.round(gy).to(torch.int64),
+                      torch.round(gx).to(torch.int64))
+    y0, x0 = torch.floor(gy), torch.floor(gx)
+    y0i, x0i = y0.to(torch.int64), x0.to(torch.int64)
+    if mode == b"bicubic":
+        # 4x4 Keys cubic (a = -0.75), padding applied PER TAP: taps reach 2
+        # past the floor cell, so border/reflection fold each integer tap
+        # coordinate
+        a = -0.75
+
+        def cubic_weights(t):
+            # tap offsets -1..2 -> distances 1+t, t, 1-t, 2-t
+            d0, d1, d2, d3 = 1.0 + t, t, 1.0 - t, 2.0 - t
+            return (a * d0 ** 3 - 5 * a * d0 ** 2 + 8 * a * d0 - 4 * a,
+                    (a + 2) * d1 ** 3 - (a + 3) * d1 ** 2 + 1,
+                    (a + 2) * d2 ** 3 - (a + 3) * d2 ** 2 + 1,
+                    a * d3 ** 3 - 5 * a * d3 ** 2 + 8 * a * d3 - 4 * a)
+
+        wys = cubic_weights((gy - y0)[:, None])
+        wxs = cubic_weights((gx - x0)[:, None])
+
+        def tap(iy, ix):
+            if pad == b"reflection":
+                iy = torch.round(_grid_reflect(iy.to(gy.dtype), h, align)
+                                 ).to(torch.int64)
+                ix = torch.round(_grid_reflect(ix.to(gx.dtype), w, align)
+                                 ).to(torch.int64)
+            return sample(iy, ix)
+
+        out = 0.0
+        for jy in range(4):
+            row = 0.0
+            for jx in range(4):
+                row = row + wxs[jx] * tap(y0i + jy - 1, x0i + jx - 1)
+            out = out + wys[jy] * row
+        return out
+    wy = (gy - y0)[:, None]
+    wx = (gx - x0)[:, None]
+    return ((1 - wy) * (1 - wx) * sample(y0i, x0i)
+            + (1 - wy) * wx * sample(y0i, x0i + 1)
+            + wy * (1 - wx) * sample(y0i + 1, x0i)
+            + wy * wx * sample(y0i + 1, x0i + 1))
+
+
+def _grid_sample_3d(node: OnnxNode, x, grid, mode, pad, align):
+    """Volumetric GridSample (opset 16+/20): x[B,C,D,H,W] sampled at
+    grid[B,Do,Ho,Wo,3] xyz locations, trilinear/nearest with the padding
+    semantics of the 4-D path."""
+    x, grid = _t(x), _t(grid)
+    d, h, w = int(x.shape[2]), int(x.shape[3]), int(x.shape[4])
+    fold = pad == b"reflection"
+    gx = _grid_unnormalize(grid[..., 0], w, align, fold)  # [B, Do, Ho, Wo]
+    gy = _grid_unnormalize(grid[..., 1], h, align, fold)
+    gz = _grid_unnormalize(grid[..., 2], d, align, fold)
+    bsel = torch.arange(x.shape[0], device=x.device)[:, None, None, None]
+
+    def sample(iz, iy, ix):
+        inside = ((iz >= 0) & (iz < d) & (iy >= 0) & (iy < h)
+                  & (ix >= 0) & (ix < w))
+        v = x[bsel, :, torch.clamp(iz, 0, d - 1), torch.clamp(iy, 0, h - 1),
+              torch.clamp(ix, 0, w - 1)].permute(0, 4, 1, 2, 3)
+        if pad == b"zeros":
+            v = torch.where(inside[:, None], v, 0.0)
+        return v
+
+    if mode == b"nearest":
+        return sample(*(torch.round(g).to(torch.int64)
+                        for g in (gz, gy, gx)))
+    z0, y0, x0 = torch.floor(gz), torch.floor(gy), torch.floor(gx)
+    wz, wy, wx = ((g - f)[:, None] for g, f in ((gz, z0), (gy, y0),
+                                                 (gx, x0)))
+    z0i, y0i, x0i = (v.to(torch.int64) for v in (z0, y0, x0))
+    out = 0.0
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                wgt = ((wz if dz else 1 - wz)
+                       * (wy if dy else 1 - wy)
+                       * (wx if dx else 1 - wx))
+                out = out + wgt * sample(z0i + dz, y0i + dy, x0i + dx)
+    return out
+
+
+def _rnn_directions(node: OnnxNode):
+    d = node.attrs.get("direction", b"forward")
+    if d == b"forward":
+        return [False]
+    if d == b"reverse":
+        return [True]
+    if d == b"bidirectional":
+        return [False, True]
+    raise ValueError(f"direction {d!r} unsupported ({node.name})")
+
+
+def _rnn_seq_prep(x, seq_lens, reverse: bool):
+    """Per-batch variable-length handling for the RNN family: returns
+    (xs, mask[S,B], gidx) where ``xs`` is the per-batch-reversed input
+    for reverse directions (ONNX reverses only the valid prefix of each
+    sequence, not the padded tail), ``mask[t, b]`` = step t is within
+    batch b's length (None without lengths: every step is), and
+    ``gidx`` scatters reverse outputs back."""
+    s = x.shape[0]
+    if seq_lens is None:
+        return (torch.flip(x, (0,)) if reverse else x), None, None
+    lens = _t(seq_lens).to(torch.int64)
+    t_idx = torch.arange(s, device=x.device)[:, None]
+    mask = t_idx < lens[None, :]
+    if not reverse:
+        return x, mask, None
+    gidx = torch.clamp(lens[None, :] - 1 - t_idx, 0, s - 1)
+    return torch.gather(x, 0, gidx[:, :, None].expand(-1, -1, x.shape[2])), \
+        mask, gidx
+
+
+def _rnn_seq_finish(y, reverse: bool, seq_lens, mask, gidx):
+    """Undo the per-batch reversal on the stacked outputs."""
+    if seq_lens is None:
+        return torch.flip(y, (0,)) if reverse else y
+    if reverse:
+        y = torch.gather(y, 0, gidx[:, :, None].expand(-1, -1, y.shape[2]))
+        y = torch.where(mask[:, :, None], y, 0.0)
+    return y
+
+
+def _rnn_step_out(mask, t, new, old):
+    """Past a batch row's length the state freezes and Y is 0."""
+    if mask is None:
+        return new, new
+    m = mask[t][:, None]
+    return torch.where(m, new, old), torch.where(m, new, 0.0)
+
+
+def _rnn_common_checks(node: OnnxNode,
+                       default_acts: tuple[bytes, ...]):
+    acts = node.attrs.get("activations")
+    if acts:
+        # exporters often spell out the defaults; only NON-default
+        # activations are unsupported
+        want = list(default_acts) * (len(acts) // len(default_acts) or 1)
+        if [a.capitalize() for a in acts] != want:
+            raise ValueError(
+                f"{node.op_type} custom activations {acts} "
+                f"unsupported ({node.name})")
+    if node.attrs.get("layout", 0):
+        raise ValueError(
+            f"{node.op_type} layout=1 unsupported ({node.name})")
+
+
+def _rnn_outputs(node: OnnxNode, ys, *states):
+    outs = (torch.stack(ys, dim=1),) + tuple(torch.stack(s)
+                                              for s in states)
+    return outs[:len(node.outputs)] if len(node.outputs) > 1 else outs[0]
+
+
+def _lstm(node: OnnxNode, x, w, r, b=None, seq_lens=None, h0=None,
+          c0=None, p=None):
+    """ONNX LSTM (gate order iofc), default activations, no peepholes:
+    a plain time loop per direction (``clip`` on the gates' input and the
+    ``sequence_lens`` freezing are the spec's, not torch.nn.LSTM's)."""
+    _rnn_common_checks(node, (b"Sigmoid", b"Tanh", b"Tanh"))
+    if p is not None:
+        raise ValueError(f"LSTM peepholes unsupported ({node.name})")
+    clip = float(node.attrs.get("clip", 0.0))
+    if node.attrs.get("input_forget", 0):
+        raise ValueError(
+            f"LSTM input_forget (CIFG) unsupported ({node.name})")
+    hs = int(node.attrs["hidden_size"])
+    x, w, r = _t(x), _t(w), _t(r)
+    bsz = x.shape[1]
+    ys, hs_out, cs_out = [], [], []
+    for d, reverse in enumerate(_rnn_directions(node)):
+        wd, rd = w[d], r[d]
+        bias = (_t(b)[d, :4 * hs] + _t(b)[d, 4 * hs:] if b is not None
+                else torch.zeros(4 * hs, dtype=x.dtype, device=x.device))
+        h = (_t(h0)[d] if h0 is not None
+             else torch.zeros((bsz, hs), dtype=x.dtype, device=x.device))
+        c = (_t(c0)[d] if c0 is not None
+             else torch.zeros((bsz, hs), dtype=x.dtype, device=x.device))
+        xs, mask, gidx = _rnn_seq_prep(x, seq_lens, reverse)
+        gx = torch.einsum("sbi,gi->sbg", xs, wd) + bias
+        steps = []
+        for t in range(gx.shape[0]):
+            g = gx[t] + h @ rd.T
+            if clip:  # spec: applied to the activations' input
+                g = torch.clamp(g, -clip, clip)
+            i = torch.sigmoid(g[:, 0 * hs:1 * hs])
+            o = torch.sigmoid(g[:, 1 * hs:2 * hs])
+            f = torch.sigmoid(g[:, 2 * hs:3 * hs])
+            ct = torch.tanh(g[:, 3 * hs:4 * hs])
+            cn = f * c + i * ct
+            h, y = _rnn_step_out(mask, t, o * torch.tanh(cn), h)
+            c, _ = _rnn_step_out(mask, t, cn, c)
+            steps.append(y)
+        ys.append(_rnn_seq_finish(torch.stack(steps), reverse, seq_lens,
+                                  mask, gidx))
+        hs_out.append(h)
+        cs_out.append(c)
+    return _rnn_outputs(node, ys, hs_out, cs_out)
+
+
+def _rnn(node: OnnxNode, x, w, r, b=None, seq_lens=None, h0=None):
+    """ONNX vanilla RNN (tanh recurrence; custom activations raise)."""
+    _rnn_common_checks(node, (b"Tanh",))
+    clip = float(node.attrs.get("clip", 0.0))
+    hs = int(node.attrs["hidden_size"])
+    x, w, r = _t(x), _t(w), _t(r)
+    bsz = x.shape[1]
+    ys, hs_out = [], []
+    for d, reverse in enumerate(_rnn_directions(node)):
+        wd, rd = w[d], r[d]
+        bias = (_t(b)[d, :hs] + _t(b)[d, hs:] if b is not None
+                else torch.zeros(hs, dtype=x.dtype, device=x.device))
+        h = (_t(h0)[d] if h0 is not None
+             else torch.zeros((bsz, hs), dtype=x.dtype, device=x.device))
+        xs, mask, gidx = _rnn_seq_prep(x, seq_lens, reverse)
+        gx = torch.einsum("sbi,gi->sbg", xs, wd) + bias
+        steps = []
+        for t in range(gx.shape[0]):
+            pre = gx[t] + h @ rd.T
+            if clip:
+                pre = torch.clamp(pre, -clip, clip)
+            h, y = _rnn_step_out(mask, t, torch.tanh(pre), h)
+            steps.append(y)
+        ys.append(_rnn_seq_finish(torch.stack(steps), reverse, seq_lens,
+                                  mask, gidx))
+        hs_out.append(h)
+    return _rnn_outputs(node, ys, hs_out)
+
+
+def _gru(node: OnnxNode, x, w, r, b=None, seq_lens=None, h0=None):
+    """ONNX GRU (gate order zrh, ``linear_before_reset``), default
+    activations."""
+    _rnn_common_checks(node, (b"Sigmoid", b"Tanh"))
+    clip = float(node.attrs.get("clip", 0.0))
+    lbr = int(node.attrs.get("linear_before_reset", 0))
+    hs = int(node.attrs["hidden_size"])
+    x, w, r = _t(x), _t(w), _t(r)
+    bsz = x.shape[1]
+
+    def cl(v):
+        return torch.clamp(v, -clip, clip) if clip else v
+
+    ys, hs_out = [], []
+    for d, reverse in enumerate(_rnn_directions(node)):
+        wd, rd = w[d], r[d]
+        zeros = torch.zeros(3 * hs, dtype=x.dtype, device=x.device)
+        wb = _t(b)[d, :3 * hs] if b is not None else zeros
+        rb = _t(b)[d, 3 * hs:] if b is not None else zeros
+        h = (_t(h0)[d] if h0 is not None
+             else torch.zeros((bsz, hs), dtype=x.dtype, device=x.device))
+        xs, mask, gidx = _rnn_seq_prep(x, seq_lens, reverse)
+        gx = torch.einsum("sbi,gi->sbg", xs, wd) + wb
+        steps = []
+        for t in range(gx.shape[0]):
+            g = gx[t]
+            gh = h @ rd.T + rb
+            z = torch.sigmoid(cl(g[:, :hs] + gh[:, :hs]))
+            rt = torch.sigmoid(cl(g[:, hs:2 * hs] + gh[:, hs:2 * hs]))
+            if lbr:
+                ht = torch.tanh(cl(g[:, 2 * hs:] + rt * gh[:, 2 * hs:]))
+            else:
+                ht = torch.tanh(cl(g[:, 2 * hs:] + (rt * h) @ rd[2 * hs:].T
+                                   + rb[2 * hs:]))
+            h, y = _rnn_step_out(mask, t, (1 - z) * ht + z * h, h)
+            steps.append(y)
+        ys.append(_rnn_seq_finish(torch.stack(steps), reverse, seq_lens,
+                                  mask, gidx))
+        hs_out.append(h)
+    return _rnn_outputs(node, ys, hs_out)
+
+
+def _seq_pos(node: OnnxNode, pos) -> int:
+    if not _is_concrete(pos):
+        raise ValueError(
+            f"sequence op with traced position ({node.name})")
+    return int(np.asarray(pos).reshape(()))
+
+
+def _seq_insert(node: OnnxNode, seq, x, pos=None):
+    out = list(seq)
+    if pos is None:
+        out.append(x)
+    else:
+        out.insert(_seq_pos(node, pos), x)
+    return out
+
+
+def _seq_erase(node: OnnxNode, seq, pos=None):
+    out = list(seq)
+    del out[-1 if pos is None else _seq_pos(node, pos)]
+    return out
+
+
+def _concat_from_sequence(node: OnnxNode, seq):
+    axis = node.attrs.get("axis", 0)
+    stack = node.attrs.get("new_axis", 0)
+    if _is_concrete(*seq):
+        return (np.stack if stack else np.concatenate)(seq, axis=axis)
+    return (torch.stack if stack else torch.cat)([_t(v) for v in seq],
+                                                 dim=axis)
+
+
+def _norm_indices(idx, x, node: OnnxNode):
+    """ONNX allows negative gather/scatter indices; normalize."""
+    dim = x.shape[node.attrs.get("axis", 0)]
+    if _is_concrete(x, idx):
+        idx = np.asarray(idx)
+        return np.where(idx < 0, idx + dim, idx)
+    idx = _t(idx).to(torch.int64)
+    return torch.where(idx < 0, idx + dim, idx)
+
+
+def _gather_elements(node: OnnxNode, x, idx):
+    axis = node.attrs.get("axis", 0)
+    idx = _norm_indices(idx, x, node)
+    if _is_concrete(x, idx):
+        return np.take_along_axis(np.asarray(x), idx, axis=axis)
+    return torch.gather(_t(x), axis, idx)
+
+
+def _gather_nd(node: OnnxNode, x, idx):
+    b = int(node.attrs.get("batch_dims", 0))
+
+    def core(xb, ib):
+        return xb[tuple(ib[..., k] for k in range(ib.shape[-1]))]
+
+    if b == 0 and _is_concrete(x, idx):
+        return core(np.asarray(x), np.asarray(idx))
+    fn = core
+    for _ in range(b):
+        fn = torch.func.vmap(fn)
+    return fn(_t(x), _t(idx).to(torch.int64))
+
+
+# ONNX scatter `reduction` attr -> (np.ufunc for the concrete path, the
+# torch scatter_reduce name for the tensor path)
+_SCATTER_REDUCTIONS = {
+    b"add": (np.add, "sum"),
+    b"mul": (np.multiply, "prod"),
+    b"min": (np.minimum, "amin"),
+    b"max": (np.maximum, "amax"),
+}
+
+
+def _scatter_reduction(node: OnnxNode):
+    red = node.attrs.get("reduction", b"none")
+    if red == b"none":
+        return None
+    if red not in _SCATTER_REDUCTIONS:
+        raise ValueError(
+            f"{node.op_type} reduction {red!r} unsupported "
+            f"({node.name})")
+    return _SCATTER_REDUCTIONS[red]
+
+
+def _scatter_elements(node: OnnxNode, x, idx, upd):
+    red = _scatter_reduction(node)
+    axis = node.attrs.get("axis", 0)
+    idx = _norm_indices(idx, x, node)
+    if _is_concrete(x, idx, upd):
+        out = np.asarray(x).copy()
+        if red is None:
+            np.put_along_axis(out, np.asarray(idx), np.asarray(upd),
+                              axis=axis)
+            return out
+        # unbuffered accumulate: duplicate indices each apply
+        grids = list(np.meshgrid(*(np.arange(s) for s in idx.shape),
+                                 indexing="ij"))
+        grids[axis] = np.asarray(idx)
+        red[0].at(out, tuple(grids), np.asarray(upd))
+        return out
+    x = _t(x)
+    idx, upd = _t(idx), _t(upd).to(x.dtype)
+    if red is None:
+        return x.scatter(axis, idx, upd)
+    return x.scatter_reduce(axis, idx, upd, red[1], include_self=True)
+
+
+def _scatter_nd(node: OnnxNode, x, idx, upd):
+    red = _scatter_reduction(node)
+    r = idx.shape[-1]
+    if _is_concrete(x, idx, upd):
+        out = np.asarray(x).copy()
+        parts = tuple(np.asarray(idx)[..., k] for k in range(r))
+        if red is None:
+            out[parts] = upd
+        else:
+            red[0].at(out, parts, np.asarray(upd))
+        return out
+    # one flat row index over the first r axes, then a row scatter
+    x = _t(x)
+    idx, upd = _t(idx).to(torch.int64), _t(upd).to(x.dtype)
+    lead, rest = tuple(x.shape[:r]), tuple(x.shape[r:])
+    flat_idx = 0
+    for k in range(r):
+        ik = idx[..., k]
+        flat_idx = flat_idx * lead[k] + torch.where(ik < 0, ik + lead[k], ik)
+    rows = x.reshape((-1,) + rest)
+    flat_idx = flat_idx.reshape(-1)
+    upd = upd.reshape((-1,) + rest)
+    if red is None:
+        out = rows.index_put((flat_idx,), upd)
+    else:
+        out = rows.scatter_reduce(
+            0, flat_idx.reshape((-1,) + (1,) * len(rest)).expand(upd.shape),
+            upd, red[1], include_self=True)
+    return out.reshape(x.shape)
+
+
+def _cumsum(node: OnnxNode, x, axis):
+    if not _is_concrete(axis):
+        raise ValueError(f"CumSum with traced axis ({node.name})")
+    axis = int(np.asarray(axis).reshape(()))
+    exclusive = node.attrs.get("exclusive", 0)
+    reverse = node.attrs.get("reverse", 0)
+    if _is_concrete(x):
+        if reverse:
+            x = np.flip(x, axis)
+        out = np.cumsum(x, axis=axis)
+        if exclusive:
+            out = np.roll(out, 1, axis)
+            sl = [slice(None)] * out.ndim
+            sl[axis] = 0
+            out[tuple(sl)] = 0
+        return np.flip(out, axis) if reverse else out
+    x = _t(x)
+    if reverse:
+        x = torch.flip(x, (axis,))
+    out = torch.cumsum(x, dim=axis, dtype=x.dtype)
+    if exclusive:
+        first = torch.arange(out.shape[axis], device=out.device) == 0
+        shape = [1] * out.ndim
+        shape[axis] = -1
+        out = torch.where(first.reshape(shape), 0,
+                          torch.roll(out, 1, axis))
+    return torch.flip(out, (axis,)) if reverse else out
+
+
+def _reduce_l1(node: OnnxNode, x, axes=None):
+    return _reduce(node, np.abs(x) if _is_concrete(x) else torch.abs(_t(x)),
+                   axes, kind="sum")
+
+
+def _reduce_l2(node: OnnxNode, x, axes=None):
+    x = x if _is_concrete(x) else _t(x)
+    s = _reduce(node, x * x, axes, kind="sum")
+    return np.sqrt(s) if _is_concrete(s) else torch.sqrt(s)
+
+
+def _logsumexp(node: OnnxNode, x, axes=None):
+    """Max-shifted (overflow-stable) logsumexp: compute in shifted space,
+    add the shift back."""
+    if axes is None:
+        axes_attr = node.attrs.get("axes")
+    else:
+        axes_attr = np.asarray(axes).reshape(-1).tolist()
+    keep = bool(node.attrs.get("keepdims", 1))
+    ax = (None if axes_attr in (None, [])
+          else tuple(int(a) for a in axes_attr))
+    if _is_concrete(x):
+        m = np.max(x, axis=ax, keepdims=True)
+        m = np.where(np.isfinite(m), m, 0.0)  # all -inf slices stay finite
+        out = np.log(np.sum(np.exp(x - m), axis=ax, keepdims=True)) + m
+        if not keep:
+            out = out.squeeze(ax) if ax is not None else out.reshape(())
+        return out
+    x = _t(x)
+    dims = tuple(range(x.ndim)) if ax is None else ax
+    m = torch.amax(x, dim=dims, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    out = torch.log(torch.sum(torch.exp(x - m), dim=dims, keepdim=True)) + m
+    return out if keep else out.squeeze(dims)
+
+
+def _lp_normalization(node: OnnxNode, x):
+    axis = node.attrs.get("axis", -1)
+    p = node.attrs.get("p", 2)
+    if _is_concrete(x):
+        norm = (np.sum(np.abs(x), axis=axis, keepdims=True) if p == 1
+                else np.sqrt(np.sum(x * x, axis=axis, keepdims=True)))
+        return x / norm
+    x = _t(x)
+    norm = (torch.sum(torch.abs(x), dim=axis, keepdim=True) if p == 1
+            else torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True)))
+    return x / norm
+
+
+def _mod(node: OnnxNode, a, b):
+    """ONNX Mod: ``fmod=1`` is C's fmod (the sign of the dividend), else
+    the floor modulus (the sign of the divisor, torch.remainder's
+    semantics), formed from fmod as jnp.mod forms it, so that float
+    results are exact."""
+    if _is_concrete(a, b):
+        return np.fmod(a, b) if node.attrs.get("fmod", 0) else np.mod(a, b)
+    a, b = _t(a), _t(b)
+    r = torch.fmod(a, b)
+    if node.attrs.get("fmod", 0):
+        return r
+    return torch.where((r != 0) & ((r < 0) != (b < 0)), r + b, r)
+
+
+def _celu(node: OnnxNode, x):
+    alpha = node.attrs.get("alpha", 1.0)
+    x = _t(x)
+    return torch.clamp(x, min=0.0) + alpha * torch.expm1(
+        torch.clamp(x, max=0.0) / alpha)
+
+
+# -- quantized op family -------------------------------------------------
+# int8/uint8 exports are what real edge detectors ship. Semantics follow
+# the ONNX spec as the JAX package's ops do: round half to even everywhere
+# (np.round and torch.round both are), saturating casts to the zero
+# point's dtype, zero points widened to int32 before they are
+# subtracted. The integer convolution and matmul accumulate in float64,
+# exact below 2**53 whatever the summation order, so the card equals the
+# CPU bit for bit: torch has no integer conv2d, and no integer matmul on
+# the card. The JAX package accumulates in int32, which wraps past 2**31
+# where float64 does not (ROADMAP C).
+
+_NP_OF_TORCH = {torch.uint8: np.uint8, torch.int8: np.int8,
+                torch.int16: np.int16, torch.int32: np.int32,
+                torch.int64: np.int64}
+_TORCH_OF_NP = {np.dtype(v): k for k, v in _NP_OF_TORCH.items()}
+
+
+def _q_info(zp, default=np.uint8):
+    """(numpy dtype, qmin, qmax) for a zero-point value (or default)."""
+    if zp is None:
+        dt = np.dtype(default)
+    elif isinstance(zp, torch.Tensor):
+        dt = np.dtype(_NP_OF_TORCH[zp.dtype])
+    else:
+        dt = np.asarray(zp).dtype
+    info = np.iinfo(dt)
+    return dt, info.min, info.max
+
+
+def _q_per_axis(p, ndim: int, axis: int):
+    """Broadcast a quantization parameter: scalars stay scalar, 1-D
+    per-axis values reshape to broadcast along `axis`."""
+    if not isinstance(p, torch.Tensor):
+        p = np.asarray(p)
+    size = p.numel() if isinstance(p, torch.Tensor) else p.size
+    if p.ndim == 0 or size == 1:
+        return p.reshape(())
+    shape = [1] * ndim
+    shape[axis % ndim] = -1
+    return p.reshape(shape)
+
+
+def _q_no_blocks(node: OnnxNode):
+    if node.attrs.get("block_size", 0):
+        raise ValueError(
+            f"blocked quantization unsupported ({node.name})")
+
+
+def _q_concrete(*vals) -> bool:
+    """Concrete, an omitted (None) zero point included: the result is
+    NumPy, so the build folds a constant weight's dequantization once."""
+    return _is_concrete(*(v for v in vals if v is not None))
+
+
+def _quantize_linear(node: OnnxNode, x, scale, zp=None):
+    _q_no_blocks(node)
+    axis = node.attrs.get("axis", 1)
+    dt, lo, hi = _q_info(zp)
+    ndim = len(x.shape)
+    if _q_concrete(x, scale, zp):
+        s = _q_per_axis(scale, ndim, axis)
+        z = np.float32(0) if zp is None else np.asarray(
+            _q_per_axis(zp, ndim, axis), np.float32)
+        # divide by the scale (a reciprocal's product moves the ties)
+        y = np.clip(np.round(np.asarray(x, s.dtype) / s) + z, lo, hi)
+        return y.astype(dt)
+    s = _q_per_axis(_t(scale), ndim, axis)
+    y = torch.round(_t(x).to(s.dtype) / s)
+    if zp is not None:
+        y = y + _q_per_axis(_t(zp), ndim, axis).to(torch.float32)
+    return torch.clamp(y, lo, hi).to(_TORCH_OF_NP[dt])
+
+
+def _dequantize_linear(node: OnnxNode, x, scale, zp=None):
+    _q_no_blocks(node)
+    axis = node.attrs.get("axis", 1)
+    ndim = len(x.shape)
+    if _q_concrete(x, scale, zp):
+        # widen BEFORE subtracting (int8 - int8 overflows at -255)
+        xi = np.asarray(x, np.int32)
+        if zp is not None:
+            xi = xi - np.asarray(_q_per_axis(zp, ndim, axis), np.int32)
+        s = _q_per_axis(scale, ndim, axis)
+        return xi.astype(s.dtype) * s
+    xi = _t(x).to(torch.int32)
+    if zp is not None:
+        xi = xi - _q_per_axis(_t(zp), ndim, axis).to(torch.int32)
+    s = _q_per_axis(_t(scale), ndim, axis)
+    return xi.to(s.dtype) * s
+
+
+def _q_requant(acc_i32, multiplier, y_zp):
+    """int32 accumulator -> quantized output: y = saturate(round(acc * m)
+    + y_zp) with banker's rounding, the QLinear* output stage. The
+    accumulator is cast to float32 before scaling, as in the JAX package
+    (and onnxruntime's reference kernels), so accumulators beyond 2**24
+    lose low bits and land at most one output quantum from integer-exact
+    requantization (tests/test_onnx_exec_ops.py::
+    test_q_requant_large_accumulator_envelope pins the envelope)."""
+    dt, lo, hi = _q_info(y_zp)
+    if _is_concrete(acc_i32):
+        y = np.round(acc_i32.astype(np.float32)
+                     * np.asarray(multiplier, np.float32))
+        y = y + np.asarray(y_zp, np.float32).reshape(())
+        return np.clip(y, lo, hi).astype(dt)
+    y = torch.round(acc_i32.to(torch.float32)
+                    * _t(multiplier).to(torch.float32))
+    y = y + _t(y_zp).to(torch.float32).reshape(())
+    return torch.clamp(y, lo, hi).to(_TORCH_OF_NP[dt])
+
+
+def _int_operand(v, zp, zp_shape: tuple):
+    """``v - zp`` as exact float64 integers: NumPy for concrete values,
+    else a tensor."""
+    if _q_concrete(v, zp):
+        vi = np.asarray(v, np.int32)
+        if zp is not None:
+            z = np.asarray(zp, np.int32)
+            vi = vi - (z.reshape(()) if z.size == 1 else z.reshape(zp_shape))
+        return vi.astype(np.float64)
+    vi = _t(v).to(torch.int32)
+    if zp is not None:
+        z = _t(zp).to(torch.int32)
+        vi = vi - (z.reshape(()) if z.numel() == 1 else z.reshape(zp_shape))
+    return vi.to(torch.float64)
+
+
+def _int_result(acc):
+    """A float64 accumulation of integers -> int32 (rounded first: the
+    card's conv algorithms need not sum in integer steps)."""
+    if isinstance(acc, np.ndarray):
+        return np.round(acc).astype(np.int32)
+    return torch.round(acc).to(torch.int32)
+
+
+def _int_conv_core(node: OnnxNode, x, x_zp, w, w_zp):
+    """(x - x_zp) conv (w - w_zp), accumulated exactly (float64). w_zp may
+    be per-output-channel (1-D of size M): subtracting it from w directly
+    is exact because each output channel convolves only its own
+    filters. Concrete operands give NumPy."""
+    xd = _int_operand(x, x_zp, ())
+    wd = _int_operand(w, w_zp, (-1, 1, 1, 1))
+    concrete = isinstance(xd, np.ndarray) and isinstance(wd, np.ndarray)
+    if concrete:
+        xd, wd = torch.from_numpy(xd), torch.from_numpy(wd)
+    # the conv attributes (strides, dilations, group, pads) are Conv's
+    acc = _int_result(_conv(node, _t(xd), _t(wd)))
+    return acc.numpy() if concrete else acc
+
+
+def _qlinear_conv(node: OnnxNode, x, x_s, x_zp, w, w_s, w_zp,
+                  y_s, y_zp, b=None):
+    acc = _int_conv_core(node, x, x_zp, w, w_zp)
+    concrete = _is_concrete(acc)
+    cast = ((lambda v, dt: np.asarray(v, dt)) if concrete
+            else (lambda v, dt: _t(v).to(dt)))
+    i32, f32 = ((np.int32, np.float32) if concrete
+                else (torch.int32, torch.float32))
+    if b is not None:  # int32 bias at scale x_s*w_s, zero point 0
+        acc = acc + cast(b, i32).reshape(1, -1, 1, 1)
+    m = (cast(x_s, f32).reshape(()) * cast(w_s, f32).reshape(-1)
+         / cast(y_s, f32).reshape(()))
+    size = m.size if concrete else m.numel()
+    m = m.reshape(()) if size == 1 else m.reshape(1, -1, 1, 1)
+    return _q_requant(acc, m, y_zp)
+
+
+def _int_matmul_core(a, a_zp, b, b_zp):
+    # a per-row a_zp (1-D of size K rows) broadcasts over a's rows; a
+    # per-column b_zp over b's columns
+    ad = _int_operand(a, a_zp, (-1, 1))
+    bd = _int_operand(b, b_zp, (1, -1))
+    if isinstance(ad, np.ndarray) and isinstance(bd, np.ndarray):
+        return _int_result(ad @ bd)
+    return _int_result(_t(ad) @ _t(bd))
+
+
+def _matmul_integer(node: OnnxNode, a, b, a_zp=None, b_zp=None):
+    return _int_matmul_core(a, a_zp, b, b_zp)
+
+
+def _conv_integer(node: OnnxNode, x, w, x_zp=None, w_zp=None):
+    return _int_conv_core(node, x, x_zp, w, w_zp)
+
+
+def _qlinear_matmul(node: OnnxNode, a, a_s, a_zp, b, b_s, b_zp,
+                    y_s, y_zp):
+    for s in (a_s, b_s, y_s):
+        size = s.numel() if isinstance(s, torch.Tensor) else np.size(s)
+        if len(np.shape(s)) and size > 1:
+            raise ValueError(
+                f"QLinearMatMul per-axis scales unsupported "
+                f"({node.name})")
+    acc = _int_matmul_core(a, a_zp, b, b_zp)
+    if _is_concrete(acc):
+        m = (np.asarray(a_s, np.float32).reshape(())
+             * np.asarray(b_s, np.float32).reshape(())
+             / np.asarray(y_s, np.float32).reshape(()))
+    else:
+        m = (_t(a_s).reshape(()) * _t(b_s).reshape(())
+             / _t(y_s).reshape(()))
+    return _q_requant(acc, m, y_zp)
+
+
+def _dynamic_quantize_linear(node: OnnxNode, x):
+    """DynamicQuantizeLinear: uint8 range [0,255], scale from the
+    zero-including min/max, zero point saturate(round(-xmin/scale))."""
+    if _is_concrete(x):
+        f32 = np.float32
+        xf = np.asarray(x, f32)
+        xmin = np.minimum(np.min(xf), f32(0.0))
+        xmax = np.maximum(np.max(xf), f32(0.0))
+        scale = ((xmax - xmin) / f32(255.0)).astype(f32)
+        # all-zero input: scale 0 would divide by zero; the spec's y is
+        # then uniformly the zero point, which any nonzero scale yields
+        safe = np.where(scale > 0, scale, f32(1.0))
+        zp = np.clip(np.round(-xmin / safe), 0, 255)
+        y = np.clip(np.round(xf / safe) + zp, 0, 255)
+        return y.astype(np.uint8), scale.reshape(()), \
+            zp.astype(np.uint8).reshape(())
+    xf = _t(x).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=xf.device)
+    xmin = torch.minimum(torch.amin(xf), zero)
+    xmax = torch.maximum(torch.amax(xf), zero)
+    scale = (xmax - xmin) / 255.0
+    safe = torch.where(scale > 0, scale, 1.0)
+    zp = torch.clamp(torch.round(-xmin / safe), 0, 255)
+    y = torch.clamp(torch.round(xf / safe) + zp, 0, 255)
+    return y.to(torch.uint8), scale.reshape(()), \
+        zp.to(torch.uint8).reshape(())
+
+
 _OPS: dict[str, Callable] = {
     "Conv": _conv,
     "BatchNormalization": _batch_norm,
@@ -1054,51 +2236,93 @@ _OPS: dict[str, Callable] = {
     "Tile": _tile,
 }
 
-# inputs that must stay concrete (shapes, axes, pads, geometry): never
-# turned into tensors, even when another input is one
-_CONCRETE_INPUTS: dict[str, frozenset] = {
-    op: frozenset(pos) for op, pos in {
-        "Shape": (0,), "Reshape": (1,), "Unsqueeze": (1,), "Squeeze": (1,),
-        "Slice": (1, 2, 3, 4), "MaxUnpool": (2,), "Clip": (1, 2),
-        "Pad": (1, 2, 3), "Resize": (1, 2, 3), "Upsample": (1,),
-        "Split": (1,), "Dropout": (1, 2), "ConstantOfShape": (0,),
-        "Expand": (1,), "ReduceMean": (1,), "ReduceSum": (1,),
-        "ReduceMax": (1,), "ReduceMin": (1,), "ReduceProd": (1,),
-        "Range": (0, 1, 2), "Tile": (1,),
-    }.items()}
+_OPS.update({
+    "TopK": lambda n, x, k=None: _topk(n, x, k),
+    "NonMaxSuppression": _nms_onnx,
+    "InstanceNormalization": _instance_norm,
+    "GroupNormalization": _group_norm,
+    "LayerNormalization": _layer_norm,
+    "Einsum": lambda n, *xs: torch.einsum(n.attrs["equation"].decode(),
+                                          *(_t(x) for x in xs)),
+    "Shrink": _shrink,
+    "IsNaN": _eltwise(np.isnan, torch.isnan),
+    "IsInf": _is_inf,
+    "EyeLike": _eye_like,
+    "Trilu": _trilu,
+    "OneHot": _one_hot,
+    "GridSample": _grid_sample,
+    "RoiAlign": _roi_align,
+    "LSTM": _lstm,
+    "GRU": _gru,
+    "RNN": _rnn,
+    # sequences are plain Python lists in the interpreter's env
+    # (torchscript list-append loops export these, typically as
+    # Loop-carried values)
+    "SequenceEmpty": lambda n: [],
+    "SequenceConstruct": lambda n, *xs: list(xs),
+    "SequenceInsert": _seq_insert,
+    "SequenceErase": _seq_erase,
+    "SequenceAt": lambda n, seq, pos: seq[_seq_pos(n, pos)],
+    "SequenceLength": lambda n, seq: np.int64(len(seq)),
+    "ConcatFromSequence": _concat_from_sequence,
+    "GatherElements": _gather_elements,
+    "GatherND": _gather_nd,
+    "ScatterElements": _scatter_elements,
+    "ScatterND": _scatter_nd,
+    "LogSoftmax": lambda n, x: _softmax(n, x, log=True),
+    "CumSum": _cumsum,
+    "ReduceL1": _reduce_l1,
+    "ReduceL2": _reduce_l2,
+    "ReduceLogSumExp": _logsumexp,
+    "LpNormalization": _lp_normalization,
+    "Mod": _mod,
+    "Sign": _eltwise(np.sign, torch.sign),
+    "Round": _eltwise(np.round, torch.round),
+    "Softsign": _eltwise(lambda x: x / (1 + np.abs(x)),
+                         lambda x: x / (1 + torch.abs(x))),
+    "Mish": lambda n, x: (lambda x: x * torch.tanh(torch.logaddexp(
+        x, torch.zeros_like(x))))(_t(x)),
+    "Gelu": lambda n, x: F.gelu(_t(x), approximate=(
+        "tanh" if n.attrs.get("approximate", b"none") == b"tanh"
+        else "none")),
+    "Celu": _celu,
+    "ThresholdedRelu": lambda n, x: (lambda x: torch.where(
+        x > n.attrs.get("alpha", 1.0), x, 0.0))(_t(x)),
+    "QuantizeLinear": _quantize_linear,
+    "DequantizeLinear": _dequantize_linear,
+    "QLinearConv": _qlinear_conv,
+    "QLinearMatMul": _qlinear_matmul,
+    "MatMulInteger": _matmul_integer,
+    "ConvInteger": _conv_integer,
+    "DynamicQuantizeLinear": _dynamic_quantize_linear,
+})
 
-UNPORTED = ("not in the PyTorch port's op set (the JAX executor's other "
-            "ops, If, Loop and Scan are ROADMAP A.8b)")
+# the control flow ops and their subgraph attributes
+_SUBGRAPHS = {"If": ("then_branch", "else_branch"), "Loop": ("body",),
+              "Scan": ("body",)}
 
 
-class GraphExecutor(torch.nn.Module):
-    """Callable ONNX graph: ``executor(*inputs) -> tuple(outputs)``.
+class _Scope(torch.nn.Module):
+    """The nodes of one graph with its constants and subgraphs: the top
+    graph (`GraphExecutor`) or the body of an If/Loop/Scan node, built as
+    a child module so that ``.to(device)`` and a replica's deep copy carry
+    its constants as well. A body sees the names of the graphs around it
+    (``outer_static``: their constants, for the fold) except the ones its
+    own inputs ``shadow``."""
 
-    Build-time validation: every node's op must be in the op set and every
-    node input producible, so an unknown topology fails here, as tract's
-    load-time check does. The build then evaluates, once, every node whose
-    inputs are all constants and whose result is NumPy, and registers the
-    graph's constants as buffers (the module docstring). ``nodes_run`` is
-    the number of nodes a call executes; ``host_copies`` the NumPy values
-    the last call turned into tensors (0 on a graph whose data never meets
-    a value computed on the host)."""
-
-    def __init__(self, graph: OnnxGraph):
+    def __init__(self, graph: OnnxGraph, outer_static: dict | None = None,
+                 shadow: frozenset = frozenset()):
         super().__init__()
         self.graph = graph
-        self.input_names = [i.name for i in graph.inputs]
-        self.output_names = [o.name for o in graph.outputs]
-        known = set(self.input_names) | set(graph.initializers) | {""}
-        self._annotate_opset(graph.nodes, graph.opset)
-        self._validate(graph.nodes, known)
-        absent = [o for o in self.output_names if o not in known]
-        if absent:
-            raise ValueError(f"graph outputs never produced: {absent}")
-        self._static = self._fold(graph)
+        seed = {k: v for k, v in (outer_static or {}).items()
+                if k not in shadow}
+        seed.update(graph.initializers)
+        folded = self._fold(graph.nodes, seed)
+        # what a run of this graph adds to its scope: its initializers
+        # and the values the build folded
+        self._static = {**graph.initializers, **folded}
         self._nodes = [n for n in graph.nodes
-                       if not all(o in self._static for o in n.outputs)]
-        self.nodes_run = len(self._nodes)
-        self.host_copies = 0
+                       if not all(o in folded for o in n.outputs)]
         self._buffer_of: dict[str, str] = {}
         for i, (name, value) in enumerate(self._static.items()):
             if isinstance(value, (np.ndarray, np.generic)) \
@@ -1107,38 +2331,24 @@ class GraphExecutor(torch.nn.Module):
                 self.register_buffer(attr, _to_tensor(value, "cpu"),
                                      persistent=False)
                 self._buffer_of[name] = attr
-        # per node: (data input positions, [(position, buffer)] of its
-        # constant data inputs)
-        self._plans = [self._plan(n) for n in self._nodes]
-
-    def _annotate_opset(self, nodes, opset: int) -> None:
-        """Ops whose SEMANTICS changed across opsets need the model's
-        opset at run time; record it on the node."""
-        for node in nodes:
-            if node.op_type in ("Softmax", "Resize"):
-                node.attrs.setdefault("_opset", opset)
-
-    def _validate(self, nodes, known: set) -> None:
-        for node in nodes:
-            if node.op_type not in _OPS:
-                raise ValueError(
-                    f"unsupported ONNX op {node.op_type!r} "
-                    f"(node {node.name!r}): {UNPORTED}")
-            missing = [i for i in node.inputs if i not in known]
-            if missing:
-                raise ValueError(
-                    f"node {node.name!r} consumes unknown values "
-                    f"{missing} (graph not topologically ordered?)")
-            known.update(node.outputs)
+        # the subgraphs, keyed by their node's position and attribute
+        self._bodies = torch.nn.ModuleDict()
+        visible = {**seed, **folded}
+        for i, node in enumerate(self._nodes):
+            for key in _SUBGRAPHS.get(node.op_type, ()):
+                sub = node.attrs[key]
+                self._bodies[f"n{i}_{key}"] = _Scope(
+                    sub, visible, frozenset(v.name for v in sub.inputs))
 
     @staticmethod
-    def _fold(graph: OnnxGraph) -> dict:
-        """The graph's constants: its initializers, and the outputs of
-        every node computed from constants alone that yields NumPy."""
-        static = dict(graph.initializers)
+    def _fold(nodes, static: dict) -> dict:
+        """The outputs of every node computed from ``static`` values alone
+        that yields NumPy (control flow runs at call time)."""
+        static, folded = dict(static), {}
         saved, _STATE.device = getattr(_STATE, "device", None), None
-        for node in graph.nodes:
-            if not all(i == "" or i in static for i in node.inputs):
+        for node in nodes:
+            if node.op_type in _SUBGRAPHS or not all(
+                    i == "" or i in static for i in node.inputs):
                 continue
             args = [static[i] if i else None for i in node.inputs]
             while args and args[-1] is None:
@@ -1150,15 +2360,378 @@ class GraphExecutor(torch.nn.Module):
             results = results if len(node.outputs) > 1 else (results,)
             if len(results) == len(node.outputs) and _is_concrete(*results):
                 static.update(zip(node.outputs, results))
+                folded.update(zip(node.outputs, results))
         _STATE.device = saved
-        return static
+        return folded
 
-    def _plan(self, node: OnnxNode):
-        keep = _CONCRETE_INPUTS.get(node.op_type, frozenset())
-        data = [i for i in range(len(node.inputs)) if i not in keep]
-        consts = [(i, self._buffer_of[node.inputs[i]]) for i in data
-                  if node.inputs[i] in self._buffer_of]
-        return data, consts
+    def _exec_nodes(self, env: dict) -> None:
+        for i, node in enumerate(self._nodes):
+            if node.op_type == "If":
+                results = self._run_if(node, f"n{i}_", env)
+            elif node.op_type == "Loop":
+                results = self._run_loop(node, f"n{i}_", env)
+            elif node.op_type == "Scan":
+                results = self._run_scan(node, f"n{i}_", env)
+            else:
+                # optional inputs are empty-named and may sit in the
+                # MIDDLE of the list (torch: Resize(X, "", scales)): keep
+                # their position as None, strip the trailing ones
+                args = [env[name] if name != "" else None
+                        for name in node.inputs]
+                while args and args[-1] is None:
+                    args.pop()
+                results = _OPS[node.op_type](node, *args)
+            if len(node.outputs) == 1:
+                env[node.outputs[0]] = results
+            else:
+                if len(results) != len(node.outputs):
+                    raise ValueError(
+                        f"node {node.name!r} ({node.op_type}) produced "
+                        f"{len(results)} results for "
+                        f"{len(node.outputs)} declared outputs")
+                for out_name, val in zip(node.outputs, results):
+                    env[out_name] = val
+
+    def _run_body(self, key: str, env: dict, bindings: dict) -> list:
+        """Run a subgraph: ONNX scoping, the body sees the outer scope and
+        its own values do not leak back out."""
+        body = self._bodies[key]
+        sub_env = dict(env)
+        sub_env.update(body._static)
+        sub_env.update(bindings)
+        body._exec_nodes(sub_env)
+        return [sub_env[o.name] for o in body.graph.outputs]
+
+    def _run_if(self, node: OnnxNode, prefix: str, env: dict):
+        """If: a condition the host can read (shape math, or a tensor
+        outside vmap) runs one branch, with no same-shape-both-branches
+        constraint. A condition batched under vmap runs both branches
+        and selects per image, as lax.cond does under jax.vmap: their
+        outputs must then match in shape and dtype."""
+        cond = env[node.inputs[0]]
+        if _readable(cond):
+            key = "then_branch" if bool(np.asarray(_host(cond)).reshape(())) \
+                else "else_branch"
+            outs = self._run_body(prefix + key, env, {})
+        else:
+            pick = cond.reshape(()).to(torch.bool)
+            then, other = ([_t(v) for v in self._run_body(prefix + key, env,
+                                                          {})]
+                           for key in ("then_branch", "else_branch"))
+            outs = []
+            for a, b in zip(then, other):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise ValueError(
+                        f"If with a data-dependent condition requires both "
+                        f"branches to produce matching shapes/dtypes "
+                        f"({node.name}): {tuple(a.shape)} {a.dtype} "
+                        f"against {tuple(b.shape)} {b.dtype}")
+                outs.append(torch.where(pick, a, b))
+        return tuple(outs) if len(node.outputs) > 1 else outs[0]
+
+    def _run_loop(self, node: OnnxNode, prefix: str, env: dict):
+        """Loop with a trip count and condition the host can read, run
+        iteration by iteration (torchscript-scripted modules export
+        Python loops this way): carried values thread through, scan
+        outputs stack along a new axis 0. A condition batched under vmap
+        (at the start, or from the body) goes to `_run_loop_traced`; a
+        batched trip count raises."""
+        key = prefix + "body"
+        body = self._bodies[key]
+        args = [env[name] if name != "" else None for name in node.inputs]
+        m = args[0] if len(args) > 0 else None
+        cond = args[1] if len(args) > 1 else None
+        carried = list(args[2:])
+        n_carried = len(carried)
+        n_scan = len(body.graph.outputs) - 1 - n_carried
+        if m is None and cond is None:
+            raise ValueError(f"Loop without trip count or condition "
+                             f"({node.name})")
+        if m is not None and not _readable(m):
+            raise ValueError(
+                f"Loop with traced (data-dependent) trip count "
+                f"({node.name}) is unsupported")
+        trip = None if m is None else int(np.asarray(_host(m)).reshape(()))
+        if trip is not None and trip >= 2**31 - 1:
+            # torchscript exports `while cond:` as trip=INT64_MAX: unbounded
+            trip = None
+        if cond is not None and not _readable(cond):
+            return self._run_loop_traced(node, key, env, trip, cond,
+                                         carried, n_scan)
+        cond_val = True if cond is None else bool(
+            np.asarray(_host(cond)).reshape(()))
+        names = [i.name for i in body.graph.inputs]
+        scans: list[list] = [[] for _ in range(n_scan)]
+        i = 0
+        while (trip is None or i < trip) and cond_val:
+            if trip is None and i >= 100_000:
+                raise ValueError(
+                    f"Loop ran 100000 iterations ({node.name})")
+            bindings = {names[0]: np.int64(i),
+                        names[1]: np.asarray(cond_val)}
+            bindings.update(zip(names[2:], carried))
+            outs = self._run_body(key, env, bindings)
+            if not _readable(outs[0]):
+                # the body makes the exit condition batched: restart on
+                # the masked loop (the iterations so far changed nothing
+                # outside the body)
+                return self._run_loop_traced(node, key, env, trip, cond,
+                                             list(args[2:]), n_scan)
+            cond_val = bool(np.asarray(_host(outs[0])).reshape(()))
+            carried = outs[1:1 + n_carried]
+            for k in range(n_scan):
+                scans[k].append(outs[1 + n_carried + k])
+            i += 1
+        if n_scan and i == 0:
+            raise ValueError(
+                f"Loop with zero iterations and scan outputs "
+                f"({node.name}): result shape is unknowable")
+        results = carried + [np.stack(s) if _is_concrete(*s)
+                             else torch.stack([_t(v) for v in s])
+                             for s in scans]
+        return tuple(results) if len(node.outputs) > 1 else results[0]
+
+    def _run_loop_traced(self, node: OnnxNode, key: str, env: dict, trip,
+                         cond, carried: list, n_scan: int):
+        """Loop whose exit condition is batched under vmap: jax.vmap's
+        while_loop, by hand. It runs while the condition holds for any
+        image; an image whose condition failed keeps its carried values
+        (a select), so each ends where its own loop would. Carried values
+        only (scan outputs would have a data-dependent shape), with
+        iteration-invariant shapes and dtypes."""
+        if n_scan:
+            raise ValueError(
+                f"Loop with a data-dependent condition AND scan "
+                f"outputs ({node.name}): scan output shape would be "
+                f"data-dependent")
+        names = [i.name for i in self._bodies[key].graph.inputs]
+        carried = [_t(v) for v in carried]
+        dev = _device()
+        i = torch.zeros((), dtype=torch.int64, device=dev)
+        c = (torch.ones((), dtype=torch.bool, device=dev) if cond is None
+             else _t(cond).reshape(()).to(torch.bool))
+        steps = 0
+        while True:
+            go = c if trip is None else c & (i < trip)
+            if not _any(go):
+                break
+            if steps >= 100_000:
+                raise ValueError(
+                    f"Loop ran 100000 iterations ({node.name})")
+            bindings = {names[0]: i, names[1]: c}
+            bindings.update(zip(names[2:], carried))
+            outs = [_t(v) for v in self._run_body(key, env, bindings)]
+            for new, old in zip(outs[1:], carried):
+                if new.shape != old.shape or new.dtype != old.dtype:
+                    raise ValueError(
+                        f"Loop with a data-dependent condition requires "
+                        f"iteration-invariant carried shapes/dtypes "
+                        f"({node.name}): {tuple(old.shape)} {old.dtype} "
+                        f"became {tuple(new.shape)} {new.dtype}")
+            carried = [torch.where(go, new, old)
+                       for new, old in zip(outs[1:], carried)]
+            c = torch.where(go, outs[0].reshape(()).to(torch.bool), c)
+            i = torch.where(go, i + 1, i)
+            steps += 1
+        return tuple(carried) if len(node.outputs) > 1 else carried[0]
+
+    def _run_scan(self, node: OnnxNode, prefix: str, env: dict):
+        """Scan: the body over slices of the scan inputs (the trip count
+        is a SHAPE, so it runs under vmap too). States thread through;
+        scan outputs stack along their output axis; concrete inputs give
+        NumPy results."""
+        key = prefix + "body"
+        body = self._bodies[key]
+        n_scan_in = int(node.attrs["num_scan_inputs"])
+        args = [env[name] for name in node.inputs]
+        n_states = len(args) - n_scan_in
+        states = list(args[:n_states])
+        in_axes = node.attrs.get("scan_input_axes", [0] * n_scan_in)
+        in_dirs = node.attrs.get("scan_input_directions", [0] * n_scan_in)
+        n_scan_out = len(body.graph.outputs) - n_states
+        out_axes = node.attrs.get("scan_output_axes", [0] * n_scan_out)
+        out_dirs = node.attrs.get("scan_output_directions",
+                                  [0] * n_scan_out)
+        xs = []
+        for x, a, d in zip(args[n_states:], in_axes, in_dirs):
+            if _is_concrete(x):
+                x = np.moveaxis(np.asarray(x), int(a), 0)
+                xs.append(x[::-1] if d else x)
+            else:
+                x = torch.movedim(_t(x), int(a), 0)
+                xs.append(torch.flip(x, (0,)) if d else x)
+        trip = xs[0].shape[0]
+        if trip == 0 and n_scan_out:
+            raise ValueError(
+                f"Scan over a zero-length sequence with scan outputs "
+                f"({node.name}): result shape is unknowable")
+        names = [i.name for i in body.graph.inputs]
+        scans: list[list] = [[] for _ in range(n_scan_out)]
+        for t in range(trip):
+            bindings = dict(zip(names[:n_states], states))
+            bindings.update((nm, x[t]) for nm, x in zip(names[n_states:], xs))
+            outs = self._run_body(key, env, bindings)
+            states = outs[:n_states]
+            for k in range(n_scan_out):
+                scans[k].append(outs[n_states + k])
+        stacked = []
+        for k in range(n_scan_out):
+            s = scans[k][::-1] if out_dirs[k] else scans[k]
+            if _is_concrete(*s):
+                stacked.append(np.moveaxis(np.stack(s, 0), 0,
+                                           int(out_axes[k])))
+            else:
+                stacked.append(torch.movedim(torch.stack(
+                    [_t(v) for v in s]), 0, int(out_axes[k])))
+        results = tuple(states) + tuple(stacked)
+        return results if len(node.outputs) > 1 else results[0]
+
+
+def _annotate_opset(nodes, opset: int) -> None:
+    """Ops whose SEMANTICS changed across opsets need the model's opset at
+    run time; record it on the node (subgraphs inherit)."""
+    for node in nodes:
+        if node.op_type in ("Softmax", "LogSoftmax", "Resize"):
+            node.attrs.setdefault("_opset", opset)
+        for v in node.attrs.values():
+            if isinstance(v, OnnxGraph):
+                _annotate_opset(v.nodes, opset)
+
+
+def _validate(nodes, known: set) -> None:
+    """Every op known and every input producible, recursively through
+    If/Loop/Scan subgraphs, with the JAX executor's messages."""
+    for node in nodes:
+        if node.op_type not in _SUBGRAPHS and node.op_type not in _OPS:
+            raise ValueError(
+                f"unsupported ONNX op {node.op_type!r} "
+                f"(node {node.name!r}) — extend models/onnx_exec.py")
+        missing = [i for i in node.inputs if i not in known]
+        if missing:
+            raise ValueError(
+                f"node {node.name!r} consumes unknown values "
+                f"{missing} (graph not topologically ordered?)")
+        if node.op_type == "If":
+            for key in ("then_branch", "else_branch"):
+                sub = node.attrs.get(key)
+                if not isinstance(sub, OnnxGraph):
+                    raise ValueError(
+                        f"If node {node.name!r} missing {key}")
+                # ONNX subgraphs see the outer lexical scope
+                sub_known = (set(known) | set(sub.initializers)
+                             | {i.name for i in sub.inputs})
+                _validate(sub.nodes, sub_known)
+                if len(sub.outputs) != len(node.outputs):
+                    raise ValueError(
+                        f"If node {node.name!r}: {key} yields "
+                        f"{len(sub.outputs)} outputs, node declares "
+                        f"{len(node.outputs)}")
+                absent = [o.name for o in sub.outputs
+                          if o.name not in sub_known]
+                if absent:
+                    raise ValueError(
+                        f"If node {node.name!r}: {key} outputs "
+                        f"never produced: {absent}")
+        if node.op_type == "Scan":
+            body = node.attrs.get("body")
+            if not isinstance(body, OnnxGraph):
+                raise ValueError(
+                    f"Scan node {node.name!r} missing body")
+            n_scan_in = int(node.attrs.get("num_scan_inputs", 0))
+            n_states = len(node.inputs) - n_scan_in
+            if n_scan_in < 1 or n_states < 0:
+                raise ValueError(
+                    f"Scan node {node.name!r}: bad num_scan_inputs")
+            if len(body.inputs) != n_states + n_scan_in:
+                raise ValueError(
+                    f"Scan node {node.name!r}: body declares "
+                    f"{len(body.inputs)} inputs, expected "
+                    f"{n_states + n_scan_in}")
+            n_scan_out = len(body.outputs) - n_states
+            if n_scan_out < 0 \
+                    or len(node.outputs) != n_states + n_scan_out:
+                raise ValueError(
+                    f"Scan node {node.name!r}: output arity "
+                    f"mismatch")
+            body_known = (set(known) | set(body.initializers)
+                          | {i.name for i in body.inputs})
+            _validate(body.nodes, body_known)
+            absent = [o.name for o in body.outputs
+                      if o.name not in body_known]
+            if absent:
+                raise ValueError(
+                    f"Scan node {node.name!r}: body outputs "
+                    f"never produced: {absent}")
+        if node.op_type == "Loop":
+            body = node.attrs.get("body")
+            if not isinstance(body, OnnxGraph):
+                raise ValueError(
+                    f"Loop node {node.name!r} missing body")
+            n_carried = max(len(node.inputs) - 2, 0)
+            if len(body.inputs) != 2 + n_carried:
+                raise ValueError(
+                    f"Loop node {node.name!r}: body declares "
+                    f"{len(body.inputs)} inputs, expected "
+                    f"{2 + n_carried}")
+            n_scan = len(body.outputs) - 1 - n_carried
+            if n_scan < 0 or len(node.outputs) != n_carried + n_scan:
+                raise ValueError(
+                    f"Loop node {node.name!r}: output arity "
+                    f"mismatch (body {len(body.outputs)}, node "
+                    f"{len(node.outputs)}, carried {n_carried})")
+            body_known = (set(known) | set(body.initializers)
+                          | {i.name for i in body.inputs})
+            _validate(body.nodes, body_known)
+            absent = [o.name for o in body.outputs
+                      if o.name not in body_known]
+            if absent:
+                raise ValueError(
+                    f"Loop node {node.name!r}: body outputs "
+                    f"never produced: {absent}")
+        known.update(node.outputs)
+
+
+class GraphExecutor(_Scope):
+    """Callable ONNX graph: ``executor(*inputs) -> tuple(outputs)``.
+
+    Build-time validation: every node's op must be in the op set and every
+    node input producible, through every subgraph, so an unknown topology
+    fails here, as tract's load-time check does. The build then evaluates,
+    once, every node whose inputs are all constants and whose result is
+    NumPy, and registers the graph's constants as buffers (the module
+    docstring), each body's in a child module. ``nodes_run`` is the
+    number of top-graph nodes a call executes; ``host_copies`` the NumPy
+    values the last call turned into tensors (0 on a graph whose data
+    never meets a value computed on the host)."""
+
+    def __init__(self, graph: OnnxGraph):
+        known = ({i.name for i in graph.inputs} | set(graph.initializers)
+                 | {""})
+        _annotate_opset(graph.nodes, graph.opset)
+        _validate(graph.nodes, known)
+        absent = [o.name for o in graph.outputs if o.name not in known]
+        if absent:
+            raise ValueError(f"graph outputs never produced: {absent}")
+        super().__init__(graph)
+        self.input_names = [i.name for i in graph.inputs]
+        self.output_names = [o.name for o in graph.outputs]
+        self.nodes_run = len(self._nodes)
+        self.host_copies = 0
+        self._by_id = None
+
+    def _constant_buffers(self) -> dict:
+        """id of each constant's NumPy value -> (module, buffer name), over
+        the graph and its bodies: where such a value meets a tensor, `_t`
+        takes its buffer, so a call copies no constant from the host,
+        though one that flows out of a body (an If branch's output, a
+        value a Loop carries) stays NumPy for shape math. Built at the
+        first call of each copy (a deep copy holds other NumPy objects)."""
+        if self._by_id is None or self._by_id[0] != id(self._static):
+            self._by_id = (id(self._static), {
+                id(scope._static[name]): (scope, attr)
+                for scope in self.modules() if isinstance(scope, _Scope)
+                for name, attr in scope._buffer_of.items()})
+        return self._by_id[1]
 
     def forward(self, *inputs):
         """Run the graph on ``inputs`` (tensors, or arrays that become
@@ -1173,9 +2746,11 @@ class GraphExecutor(torch.nn.Module):
         if device is None:
             device = next((b.device for b in self.buffers()),
                           torch.device("cpu"))
-        saved = getattr(_STATE, "device", None), getattr(_STATE,
-                                                         "converted", 0)
+        saved = (getattr(_STATE, "device", None),
+                 getattr(_STATE, "converted", 0),
+                 getattr(_STATE, "buffer_of", None))
         _STATE.device, _STATE.converted = device, 0
+        _STATE.buffer_of = self._constant_buffers()
         try:
             env: dict[str, object] = dict(self._static)
             env.update(zip(self.input_names,
@@ -1185,34 +2760,8 @@ class GraphExecutor(torch.nn.Module):
             self._exec_nodes(env)
             self.host_copies = _STATE.converted
         finally:
-            _STATE.device, _STATE.converted = saved
+            _STATE.device, _STATE.converted, _STATE.buffer_of = saved
         return tuple(env[name] for name in self.output_names)
-
-    def _exec_nodes(self, env: dict) -> None:
-        buffers = self._buffers
-        for node, (data, consts) in zip(self._nodes, self._plans):
-            # optional inputs are empty-named and may sit in the MIDDLE of
-            # the list (torch: Resize(X, "", scales)): keep their position
-            # as None, strip the trailing ones
-            args = [env[name] if name != "" else None
-                    for name in node.inputs]
-            if consts and any(isinstance(args[i], torch.Tensor)
-                              for i in data):
-                for i, attr in consts:
-                    args[i] = buffers[attr]
-            while args and args[-1] is None:
-                args.pop()
-            results = _OPS[node.op_type](node, *args)
-            if len(node.outputs) == 1:
-                env[node.outputs[0]] = results
-            else:
-                if len(results) != len(node.outputs):
-                    raise ValueError(
-                        f"node {node.name!r} ({node.op_type}) produced "
-                        f"{len(results)} results for "
-                        f"{len(node.outputs)} declared outputs")
-                for out_name, val in zip(node.outputs, results):
-                    env[out_name] = val
 
 
 class GraphModel(torch.nn.Module):

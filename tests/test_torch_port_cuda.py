@@ -2,7 +2,8 @@
 decode tail, the annotated and coefficient programs against the CPU, the
 serving worker's stream-ordered transfers, the tiled programs (one
 NMS launch a call, kernel = scan, rows = packed) and two data-parallel
-replicas on one card, and the ONNX graph detector, on the card.
+replicas on one card, the ONNX graph detector (float and int8 QDQ), the
+integer quantized ops and control flow under vmap, on the card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -702,3 +703,96 @@ def test_graph_detector_to_mesh_bit_identical_per_shard(cuda):
     torch.cuda.synchronize()
     assert nms.kernel.launches == before + 2
     assert torch.equal(got, want)
+
+
+# -- the rest of the graph runtime: the QDQ detector, integer ops, control -
+
+QDQ_ONNX = REPO / "tests" / "fixtures" / "ultraface_twin_rfb320_qdq.onnx"
+
+
+def test_qdq_graph_detector_on_cuda_matches_cpu(cuda):
+    """GraphDetector on the committed int8 QDQ export, TF32 turned on for
+    the whole process: card against CPU by `chip_smoke.qdq_agreement` (the
+    CPU tests' bar for two runs whose float32 sums differ in order), one
+    NMS launch a call, nothing copied from the host."""
+    from chip_smoke import qdq_agreement
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
+
+    matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
+    saved = (matmul.fp32_precision, conv.fp32_precision)
+    matmul.fp32_precision = conv.fp32_precision = "tf32"
+    try:
+        frames = _graph_frames()
+        det = GraphDetector(str(QDQ_ONNX), device=cuda)
+        det.run_device(frames, pack_output=True)
+        torch.cuda.synchronize()
+        before = nms.kernel.launches
+        got = det.run_device(frames, pack_output=True).cpu()
+        assert nms.kernel.launches == before + 1
+        assert det.executor.host_copies == 0
+        want = GraphDetector(str(QDQ_ONNX), device="cpu").run_device(
+            frames, pack_output=True)
+    finally:
+        matmul.fp32_precision, conv.fp32_precision = saved
+    agreement = qdq_agreement(got, want, det.config.min_confidence)
+    assert agreement["ok"], agreement
+
+
+@pytest.mark.parametrize("op", ["MatMulInteger", "ConvInteger",
+                                "QLinearConv", "QLinearMatMul"])
+def test_integer_ops_on_cuda_bit_equal_cpu(cuda, op):
+    """The integer matmul and convolution accumulate in float64, exact
+    whatever the summation order: the card equals the CPU bit for bit,
+    accumulators past 2**24 included."""
+    from infercam_onnx_tpu_torch.models import onnx_exec as px
+    from infercam_onnx_tpu_torch.models.onnx_reader import OnnxNode
+
+    rng = np.random.default_rng(7)
+    u8 = lambda *s: rng.integers(100, 256, size=s).astype(np.uint8)  # noqa
+    s8 = lambda *s: rng.integers(-128, 128, size=s).astype(np.int8)  # noqa
+    args, attrs = {
+        "MatMulInteger": ((u8(64, 4096), s8(4096, 32), np.uint8(3),
+                           np.int8(-7)), {}),
+        "ConvInteger": ((u8(2, 512, 9, 9), s8(16, 512, 3, 3), np.uint8(0),
+                         np.int8(0)), {"pads": [1, 1, 1, 1]}),
+        "QLinearConv": ((u8(2, 64, 20, 24), np.float32(0.02),
+                         np.uint8(120), s8(32, 32, 3, 3),
+                         rng.uniform(1e-3, 1e-2, size=32).astype(np.float32),
+                         np.zeros(32, np.int8), np.float32(0.05),
+                         np.uint8(20),
+                         rng.integers(-2000, 2000, size=32).astype(np.int32)),
+                        {"pads": [1, 1, 1, 1], "group": 2}),
+        "QLinearMatMul": ((u8(16, 96), np.float32(0.01), np.uint8(130),
+                           u8(96, 8), np.float32(0.02), np.uint8(110),
+                           np.float32(0.04), np.uint8(16)), {}),
+    }[op]
+    node = OnnxNode(op, op, [], ["y"], attrs)
+    want = px._OPS[op](node, *(torch.from_numpy(np.array(a)) for a in args))
+    got = px._OPS[op](node, *(torch.from_numpy(np.array(a)).to(cuda)
+                              for a in args))
+    assert got.device.type == "cuda" and got.dtype == want.dtype
+    assert torch.equal(got.cpu(), want)
+
+
+def test_control_flow_under_vmap_on_cuda_matches_cpu(cuda):
+    """A data-dependent If and Loop and a Scan under torch.func.vmap on
+    the card equal the CPU's (`chip_smoke._control_graphs`), with their
+    bodies' constants on the card: no host copy a call."""
+    from chip_smoke import _control_graphs
+    from infercam_onnx_tpu_torch.models.onnx_exec import GraphExecutor
+
+    rng = np.random.default_rng(3)
+    inputs = ((rng.normal(size=(8, 3)).astype(np.float32),),
+              (rng.uniform(0.01, 20.0, size=8).astype(np.float32),),
+              (np.zeros(8, np.float32),
+               rng.normal(size=(8, 5)).astype(np.float32)))
+    for graph, args in zip(_control_graphs(), inputs):
+        ex = GraphExecutor(graph)
+        want = torch.func.vmap(ex)(*(torch.from_numpy(a) for a in args))
+        got = torch.func.vmap(ex.to(cuda))(*(torch.from_numpy(a).to(cuda)
+                                             for a in args))
+        assert ex.host_copies == 0
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)

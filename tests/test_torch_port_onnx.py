@@ -3,12 +3,13 @@
 
 The reader must give the same graph as JAX's on every export and raise the
 same exception on garbage and on mutated files. The executor's ops are
-held against the JAX ops on the same NumPy inputs: every one of the 78 ops
-of the port's op set, the op-level oracles of
+held against the JAX ops on the same NumPy inputs: every one of the 78
+ops of the convolutional slice (the rest of the table is in
+``test_torch_port_onnx_{ops_rest,quant,control}.py``), the op-level oracles of
 ``tests/test_onnx_exec_ops.py`` that use only those ops, the exports of
 that file's torch modules and of ``tests/model_zoo_torch.py``, all under
-the JAX tests' tolerances. An op outside the set (ROADMAP A.8b) raises
-when the executor is built.
+the JAX tests' tolerances. An op in neither table raises when the
+executor is built, with JAX's message.
 """
 
 import copy
@@ -253,11 +254,18 @@ OP_CASES = {
 
 
 def test_op_cases_cover_the_whole_op_set():
-    """The port's table is the JAX table's CNN slice: 78 ops, each with a
-    case below, and none that the JAX executor lacks."""
-    assert len(px._OPS) == 78
-    assert set(px._OPS) <= set(jx._OPS)
-    assert {case[0] for case in OP_CASES.values()} == set(px._OPS)
+    """The port's table is the JAX table, all 127 ops: the convolutional
+    slice has a case below, the rest in
+    tests/test_torch_port_onnx_ops_rest.py, the quantized family in
+    tests/test_torch_port_onnx_quant.py."""
+    from test_torch_port_onnx_ops_rest import REST_CASES
+    from test_torch_port_onnx_quant import QUANT_CASES
+
+    assert set(px._OPS) == set(jx._OPS) and len(px._OPS) == 127
+    covered = {case[0] for cases in (OP_CASES, REST_CASES, QUANT_CASES)
+               for case in cases.values()}
+    assert covered == set(px._OPS)
+    assert len({case[0] for case in OP_CASES.values()}) == 78
 
 
 @pytest.mark.parametrize("name", sorted(OP_CASES))
@@ -265,6 +273,22 @@ def test_op_matches_jax(name):
     op, attrs, args, n_out, atol = OP_CASES[name]
     got, want = _both_ops(op, attrs, args, n_out)
     _assert_same(got, want, atol)
+
+
+# inputs a graph always hands an op as NumPy (shapes, axes, pads,
+# geometry: computed on the host by the shape math)
+SHAPE_INPUTS = {
+    "Shape": (0,), "Reshape": (1,), "Unsqueeze": (1,), "Squeeze": (1,),
+    "Slice": (1, 2, 3, 4), "MaxUnpool": (2,), "Clip": (1, 2),
+    "Pad": (1, 2, 3), "Resize": (1, 2, 3), "Upsample": (1,), "Split": (1,),
+    "Dropout": (1, 2), "ConstantOfShape": (0,), "Expand": (1,),
+    "ReduceMean": (1,), "ReduceSum": (1,), "ReduceMax": (1,),
+    "ReduceMin": (1,), "ReduceProd": (1,), "Range": (0, 1, 2), "Tile": (1,),
+    "TopK": (1,), "NonMaxSuppression": (2, 3, 4), "Trilu": (1,),
+    "OneHot": (1,), "SequenceInsert": (2,), "SequenceErase": (1,),
+    "SequenceAt": (1,), "CumSum": (1,), "ReduceL1": (1,), "ReduceL2": (1,),
+    "ReduceLogSumExp": (1,),
+}
 
 
 @pytest.mark.parametrize("name", [
@@ -279,7 +303,7 @@ def test_op_on_tensors_matches_jax(name):
     """The same cases with their data as tensors, the form a graph run
     hands the ops (NumPy inputs stay NumPy where every input is)."""
     op, attrs, args, n_out, atol = OP_CASES[name]
-    keep = px._CONCRETE_INPUTS.get(op, frozenset())
+    keep = SHAPE_INPUTS.get(op, ())
     targs = [torch.from_numpy(np.array(a)) if i not in keep
              and isinstance(a, np.ndarray) and a.dtype != np.int64 else a
              for i, a in enumerate(args)]
@@ -582,39 +606,58 @@ def test_softmax_pre13_flattened_semantics(opset):
 
 
 def test_unsupported_op_fails_loudly_at_build(tmp_path):
-    """An op outside the slice (TopK, exported by torch) builds in the JAX
-    executor and raises in the port's, naming the op and ROADMAP A.8b."""
+    """TopK (exported by torch) builds and runs in both executors, equal;
+    an op in neither table raises at build in both, with JAX's message
+    (no op of JAX's table raises)."""
     path = tmp_path / "topk.onnx"
     export_onnx(jtests._TopKNet(), path, torch.zeros(2, 6), opset=11)
-    jx.GraphExecutor(jr.read_onnx_graph(str(path)))
-    with pytest.raises(ValueError, match="unsupported ONNX op 'TopK'.*A.8b"):
-        px.GraphExecutor(pr.read_onnx_graph(str(path)))
+    x = np.random.default_rng(11).normal(size=(2, 6)).astype(np.float32)
+    got = px.GraphExecutor(pr.read_onnx_graph(str(path)))(x)
+    _assert_same(got, jx.GraphExecutor(jr.read_onnx_graph(str(path)))(x), 0)
+    jg, pg = _graphs([("FooOp", "foo", ["x"], ["y"], {})], {},
+                     [("x", 1, [1])], [("y", 1, [1])])
+    with pytest.raises(ValueError) as jerr:
+        jx.GraphExecutor(jg)
+    with pytest.raises(ValueError) as perr:
+        px.GraphExecutor(pg)
+    assert str(perr.value) == str(jerr.value)
+    assert str(perr.value).startswith("unsupported ONNX op 'FooOp'")
 
 
 @pytest.mark.parametrize("op", ["If", "Loop", "Scan"])
 def test_control_flow_fails_at_build(op):
-    """If/Loop/Scan are A.8b: a graph holding one raises at build."""
-    body = pr.OnnxGraph(nodes=[], initializers={}, inputs=[], outputs=[],
-                        opset=13)
-    g = pr.OnnxGraph(
-        nodes=[pr.OnnxNode(op, "cf", ["x"], ["y"],
-                           {"body": body, "then_branch": body,
-                            "else_branch": body})],
-        initializers={}, inputs=[pr.OnnxValueInfo("x", 1, [1])],
-        outputs=[pr.OnnxValueInfo("y", 1, [1])], opset=13)
-    with pytest.raises(ValueError, match=f"unsupported ONNX op '{op}'.*A.8b"):
-        px.GraphExecutor(g)
+    """If/Loop/Scan build now; a malformed one (here a body with no
+    inputs or outputs) fails at build with the JAX executor's message."""
+    def graph(m):
+        body = m.OnnxGraph(nodes=[], initializers={}, inputs=[], outputs=[],
+                           opset=13)
+        return m.OnnxGraph(
+            nodes=[m.OnnxNode(op, "cf", ["x"], ["y"],
+                              {"body": body, "then_branch": body,
+                               "else_branch": body})],
+            initializers={}, inputs=[m.OnnxValueInfo("x", 1, [1])],
+            outputs=[m.OnnxValueInfo("y", 1, [1])], opset=13)
+
+    with pytest.raises(ValueError) as jerr:
+        jx.GraphExecutor(graph(jr))
+    with pytest.raises(ValueError) as perr:
+        px.GraphExecutor(graph(pr))
+    assert str(perr.value) == str(jerr.value)
+    assert f"{op} node 'cf'" in str(perr.value)
 
 
 def test_lrn_export_with_if_subgraph_is_a8b(tmp_path):
-    """torch's LRN export goes through an If node: the JAX executor runs
-    it, the port refuses it at build (A.8b)."""
+    """torch's LRN export goes through an If node (ROADMAP A.8b, ported):
+    the port runs it, equal to the JAX executor and torch."""
     path = tmp_path / "lrn.onnx"
     export_onnx(jtests._Lrn(), path, torch.zeros(2, 12, 7, 6), opset=11)
     assert any(n.op_type == "If"
                for n in pr.read_onnx_graph(str(path)).nodes)
-    with pytest.raises(ValueError, match="A.8b"):
-        px.GraphExecutor(pr.read_onnx_graph(str(path)))
+    x = np.random.default_rng(3).normal(size=(2, 12, 7, 6)).astype(
+        np.float32)
+    _, got = _both_executors(path, [x], 1e-5)
+    np.testing.assert_allclose(got[0].numpy(), jtests._Lrn()(
+        torch.from_numpy(x)).numpy(), atol=1e-5)
 
 
 def test_graph_validation_errors_equal_jax():
