@@ -23,8 +23,10 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    the >=95% box/confidence parity gate of tests/fixtures/goldens_twin_
    rfb320_synthetic.json; with TF32 turned on process-wide its packed
    output must not change;
-4. the main path: Detector() (RFB-320, bfloat16) on a batch of 16 640x480
-   frames through run_device(pack_output=True), with the kernels' launch
+4. the main path: Detector (RFB-320, bfloat16, random weights from seed 0
+   given explicitly, so the weights chain never reads the machine's cache)
+   on a batch of 16 640x480 frames through run_device(pack_output=True),
+   with the kernels' launch
    counts set to 0 just before and read just after; the same scores
    through the plain NMS must give an identical packed output. Then
    ms/batch and frames/s, and one RFB-640 batch of 4;
@@ -124,6 +126,23 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    gather/scatter, GridSample and RoiAlign, a data-dependent If and Loop
    inside torch.func.vmap and a Scan, and MatMulInteger, ConvInteger and
    QLinearConv bit-equal; each its largest difference and tolerance;
+4k. weights_chain: under a private XDG_CACHE_HOME (restored after), the
+   committed twin export at cached_model_path("RFB-320") and a float32
+   Detector built with no weights on the 16 frames of 4: its packed output
+   bit-identical to the detector given params_from_onnx of the export, one
+   NMS launch a call, the .npz cache written; a second detector from that
+   cache and a third from a truncated one (rebuilt) bit-identical again;
+   the seconds of one offline load_or_download_params("slim-320") miss,
+   with the stock downloader pointed at a closed local port;
+4l. goldens_cli: ``python -m infercam_onnx_tpu_torch.eval.goldens check``
+   on the card (float32, frozen weights, the committed fixture) exits 0
+   with the goldens phase's counts and parities; ``make`` into a temp
+   file, then ``check`` against it, gives parity 1.0; the float32 trunk's
+   outputs through ops/reference_impl.postprocess (the reference's
+   semantics in NumPy) equal the packed kernel output by ROADMAP C.3;
+4m. onnx_run: ``python -m infercam_onnx_tpu_torch.onnx_run`` on the twin
+   and CRNN exports, ``--device cuda --runs 20`` and on the CPU: each exits
+   0, the card's outputs within 1e-4 of the CPU's, ms a run printed;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -173,8 +192,18 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    the export of 4h in place of the native detector, with the same
    reports and checks; 5g. serve_qdq (after 5f) the same with the int8
    QDQ export of 4i;
-6. the whole run's seconds, the kernels line, the nvidia-smi line, and
-   the final status line.
+5h. serve_pixels_annotate (after 5c): the traffic and checks of 5 with
+   pixels decode and device annotation: stream 0's frames take the
+   annotated pixels unit, whose face parts must equal encode_coefs of its
+   program's outputs;
+5i. serve_cli_throughput (after 5e): ``python -m
+   infercam_onnx_tpu_torch.serve --preset throughput`` (ycbcr decode at
+   scale 2) on the frozen weights as a child process, driven by ``python
+   -m infercam_onnx_tpu_torch.loadgen`` (16 x 30 fps for 10 s): frames
+   inferred, no sender errored, and the /stats NMS launches equal its
+   batches over the load;
+6. the whole run's seconds (and the new phases'), the kernels line, the
+   nvidia-smi line, and the final status line.
 
 Needs one CUDA card and the repository's sources; imports nothing of JAX.
 
@@ -187,6 +216,7 @@ at PARENT_DIR and of this one, in turns (parent, this, this, parent).
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import pathlib
 import signal
@@ -738,9 +768,13 @@ def main_path(device) -> dict:
 
     from infercam_onnx_tpu_torch.config import DetectorConfig
     from infercam_onnx_tpu_torch.detector import Detector, detect_program
+    from infercam_onnx_tpu_torch.models.ultraface import init_params
     from infercam_onnx_tpu_torch.ops import nms
 
-    det = Detector(device=device)  # RFB-320, bfloat16, random weights
+    # RFB-320, bfloat16, random weights given explicitly: the weights chain
+    # would read the card machine's cache
+    random_rfb = init_params(0, background_bias=0.75, arch="RFB")
+    det = Detector(params=random_rfb, device=device)
     frames = synthetic_batch(16, 640, 480)
     det.warmup(16, 480, 640)
 
@@ -777,7 +811,8 @@ def main_path(device) -> dict:
         det.run_device(frames, pack_output=True).cpu()
     host_ms = (time.perf_counter() - t0) / 10 * 1e3
 
-    det640 = Detector(DetectorConfig(variant="RFB-640"), device=device)
+    det640 = Detector(DetectorConfig(variant="RFB-640"), params=random_rfb,
+                      device=device)
     frames640 = synthetic_batch(4, 640, 480)
     det640.warmup(4, 480, 640)
     images640 = torch.from_numpy(frames640).to(device)
@@ -885,7 +920,7 @@ def ycbcr_path(device, jpegs: list[bytes]) -> dict:
     from infercam_onnx_tpu_torch import codec
     from infercam_onnx_tpu_torch.config import DetectorConfig
     from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
-    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.eval.parity import parity_report
     from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
     from infercam_onnx_tpu_torch.ops import nms
     from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
@@ -1177,7 +1212,7 @@ def coefficients_path(device, jpegs: list[bytes]) -> dict:
     from infercam_onnx_tpu_torch.detector import (Detector,
                                                   pack_coefficient_batch,
                                                   unpack_detections)
-    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.eval.parity import parity_report
     from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
     from infercam_onnx_tpu_torch.ops import nms
     from infercam_onnx_tpu_torch.ops.jpeg_device import read_coefficient_batch
@@ -1370,7 +1405,7 @@ def tiled_path(device, jpegs: list[bytes]) -> dict:
 
     from infercam_onnx_tpu_torch.config import DetectorConfig
     from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
-    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.eval.parity import parity_report
     from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
     from infercam_onnx_tpu_torch.ops import nms
     from infercam_onnx_tpu_torch.parallel import tiling
@@ -1790,7 +1825,7 @@ def qdq_agreement(got, want, min_confidence: float) -> dict:
     import numpy as np
 
     from infercam_onnx_tpu_torch.detector import unpack_detections
-    from infercam_onnx_tpu_torch.eval.goldens import match_detections
+    from infercam_onnx_tpu_torch.eval.parity import match_detections
 
     got, want = (unpack_detections(np.asarray(p.cpu() if hasattr(p, "cpu")
                                               else p)) for p in (got, want))
@@ -1972,7 +2007,7 @@ def qdq_path(device, jpegs: list[bytes]) -> dict:
     from infercam_onnx_tpu_torch.config import DetectorConfig
     from infercam_onnx_tpu_torch.detector import (detect_program,
                                                   unpack_detections)
-    from infercam_onnx_tpu_torch.eval.goldens import parity_report
+    from infercam_onnx_tpu_torch.eval.parity import parity_report
     from infercam_onnx_tpu_torch.models.onnx_exec import GraphDetector
     from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
     from infercam_onnx_tpu_torch.ops import nms
@@ -2265,6 +2300,286 @@ def check_graph_ops(rec: dict) -> None:
            if not v["ok"] or v.get("host_copies_a_call", 0)}
     if bad:
         raise SystemExit(f"graph ops on the card differ from the CPU's: {bad}")
+
+
+# -- phases 4k-4m: the weights chain, the goldens CLI, onnx_run ----------------
+
+@contextlib.contextmanager
+def private_cache():
+    """``XDG_CACHE_HOME`` pointed at a temporary directory for the block,
+    restored after: the weights chain reads and writes nothing of the
+    host's cache, and no later phase finds what this one cached."""
+    import os
+
+    saved = os.environ.get("XDG_CACHE_HOME")
+    with tempfile.TemporaryDirectory() as home:
+        os.environ["XDG_CACHE_HOME"] = home
+        try:
+            yield pathlib.Path(home)
+        finally:
+            if saved is None:
+                del os.environ["XDG_CACHE_HOME"]
+            else:
+                os.environ["XDG_CACHE_HOME"] = saved
+
+
+def weights_chain(device) -> dict:
+    """`Detector` without weights (float32) under a private user cache
+    holding the committed twin export at ``cached_model_path("RFB-320")``:
+    its packed output on the 16 synthetic 640x480 frames must equal the
+    detector given ``params_from_onnx`` of the export bit for bit, with one
+    NMS launch a call; the .npz cache it writes must give a bit-identical
+    detector again, and so must a truncated .npz, which is rebuilt. Then
+    the seconds one ``load_or_download_params("slim-320")`` takes with
+    nothing cached and the stock downloader pointed at a closed local
+    port (the run reaches no outside host), and that it returns None."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+    from infercam_onnx_tpu_torch.models import checkpoint, convert
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.utils import download
+
+    frames = synthetic_batch(16, 640, 480)
+    config = DetectorConfig(compute_dtype="float32")
+    want = Detector(config, params=convert.params_from_onnx(str(GRAPH_ONNX)),
+                    device=device).run_device(frames, pack_output=True).cpu()
+    out: dict = {"variant": "RFB-320", "dtype": "float32", "batch": 16,
+                 "frame": [640, 480]}
+    with private_cache() as home:
+        shutil.copyfile(GRAPH_ONNX, convert.cached_model_path("RFB-320"))
+        npz = home / "infercam_onnx_tpu" / "weights" / "ultraface-RFB-320.npz"
+        runs = {}
+        for step in ("from_cached_onnx", "from_npz_cache", "rebuilt_npz"):
+            if step == "rebuilt_npz":
+                npz.write_bytes(npz.read_bytes()[:4096])
+            t0 = time.perf_counter()
+            det = Detector(config, device=device)
+            build_s = time.perf_counter() - t0
+            nms.kernel.launches = 0
+            got = det.run_device(frames, pack_output=True)
+            torch.cuda.synchronize()
+            runs[step] = {"launches": nms.kernel.launches,
+                          "identical_to_explicit_params": bool(
+                              torch.equal(got.cpu(), want)),
+                          "detections": int(got[..., 5].sum()),
+                          "npz_written": npz.is_file(),
+                          "detector_build_s": build_s}
+        checkpoint.load_params(str(npz))  # the rebuilt cache reads back
+        out["runs"] = runs
+        real = download.download_file
+
+        def stock_to_closed_port(url, path, *, timeout=60.0):
+            closed = f"http://127.0.0.1:{free_ports(1)[0]}/ultraface.onnx"
+            return real(closed, path, timeout=timeout)
+
+        download.download_file = stock_to_closed_port
+        try:
+            t0 = time.perf_counter()
+            miss = convert.load_or_download_params("slim-320")
+            out["offline_miss_s"] = time.perf_counter() - t0
+        finally:
+            download.download_file = real
+        out["offline_miss_returns_none"] = miss is None
+        out["offline_miss_leaves_no_file"] = not pathlib.Path(
+            convert.cached_model_path("slim-320")).exists()
+    out["launches"] = runs["from_cached_onnx"]["launches"]
+    return out
+
+
+def check_weights_chain(rec: dict) -> None:
+    for step, r in rec["runs"].items():
+        if r["launches"] != 1:
+            raise SystemExit(f"weights_chain {step}: {r['launches']} nms "
+                             f"launches a call, not 1")
+        if not r["identical_to_explicit_params"] or not r["npz_written"]:
+            raise SystemExit(f"weights_chain {step}: {r}")
+    if not (rec["offline_miss_returns_none"]
+            and rec["offline_miss_leaves_no_file"]):
+        raise SystemExit(f"weights_chain: the offline miss {rec}")
+
+
+GOLDENS_KEYS = ("images", "want_total", "got_total", "box_matched",
+                "conf_matched", "box_parity", "conf_parity", "passed",
+                "min_parity")
+
+
+def goldens_cli_start(argv: list[str]) -> subprocess.Popen:
+    """``python -m infercam_onnx_tpu_torch.eval.goldens ARGV`` in a child
+    process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "infercam_onnx_tpu_torch.eval.goldens",
+         *argv], cwd=str(REPO), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def goldens_cli_result(proc: subprocess.Popen, t0: float) -> dict:
+    """A goldens CLI child's exit code, last stdout line (JSON where it is
+    one) and seconds since ``t0``; any exit code but 0 and 1 fails."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode not in (0, 1):
+        raise SystemExit(f"goldens CLI {proc.args[3]} failed (rc "
+                         f"{proc.returncode}): {stderr[-3000:]}")
+    line = stdout.strip().splitlines()[-1]
+    return {"rc": proc.returncode, "s": time.perf_counter() - t0,
+            **(json.loads(line) if line.startswith("{") else {"out": line})}
+
+
+def goldens_cli(device, gold: dict) -> dict:
+    """The goldens CLI on ``device`` in child processes: ``check`` on the
+    committed fixture (float32, frozen weights) must exit 0 and print the
+    in-process goldens phase's counts and parities; ``make`` into a temp
+    file and ``check`` against it must give parity 1.0. Then the reference
+    oracle on the card: the float32 trunk's outputs on the 16 synthetic
+    frames through ``ops/reference_impl.postprocess`` (the reference's
+    nn.rs semantics, in NumPy) against the packed output of the same
+    detector (the NMS kernel), by ROADMAP C.3."""
+    import numpy as np
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig, full_float32
+    from infercam_onnx_tpu_torch.detector import Detector, unpack_detections
+    from infercam_onnx_tpu_torch.ops import nms
+    from infercam_onnx_tpu_torch.ops import reference_impl
+    from infercam_onnx_tpu_torch.ops.preprocess import preprocess_images
+
+    flags = ["--device", device.type, "--variant", "RFB-320",
+             "--compute-dtype", "float32", "--weights", str(WEIGHTS),
+             "--dir", str(SYNTH_PICS)]
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        made = str(pathlib.Path(tmp) / "goldens.json")
+        t0 = time.perf_counter()  # check and make at once, then the check
+        check = goldens_cli_start(["check", *flags, "--goldens",
+                                   str(GOLDENS)])
+        make = goldens_cli_start(["make", *flags, "--out", made])
+        out["check"] = goldens_cli_result(check, t0)
+        out["make"] = goldens_cli_result(make, t0)
+        t0 = time.perf_counter()
+        out["check_made"] = goldens_cli_result(goldens_cli_start(
+            ["check", *flags, "--goldens", made]), t0)
+    out["check"]["equals_in_process_goldens"] = all(
+        out["check"].get(k) == gold[k] for k in GOLDENS_KEYS)
+
+    det = Detector(DetectorConfig(compute_dtype="float32", top_k=512,
+                                  max_detections=256),
+                   weights=str(WEIGHTS), device=device)
+    frames = synthetic_batch(16, 640, 480)
+    nms.kernel.launches = 0
+    packed = det.run_device(frames, pack_output=True)
+    torch.cuda.synchronize()
+    out["launches"] = nms.kernel.launches
+    images = torch.from_numpy(frames).to(device)
+    with torch.inference_mode(), full_float32():
+        x = preprocess_images(images, *det.preprocessor.matrices(640, 480))
+        scores, boxes = det.model(x, det.priors)
+    scores, boxes = scores.float().cpu().numpy(), boxes.float().cpu().numpy()
+    c = det.config
+    counts_equal, box_diff, conf_diff, total = True, 0.0, 0.0, 0
+    for i, got in enumerate(unpack_detections(packed.cpu().numpy())):
+        want = reference_impl.postprocess(scores[i], boxes[i],
+                                          c.min_confidence, c.max_iou)
+        total += len(want)
+        if len(got) != len(want):
+            counts_equal = False
+            continue
+        for (gb, gc), (wb, wc) in zip(got, want):
+            box_diff = max(box_diff, float(np.abs(gb - wb).max()))
+            conf_diff = max(conf_diff, abs(gc - wc))
+    out["reference_oracle_vs_kernel"] = {
+        "counts_equal": counts_equal, "detections": total,
+        "max_box_diff": box_diff, "max_conf_diff": conf_diff}
+    return out
+
+
+def check_goldens_cli(rec: dict) -> None:
+    check = rec["check"]
+    if check["rc"] != 0 or not check["passed"]:
+        raise SystemExit(f"goldens CLI check failed: {check}")
+    if not check["equals_in_process_goldens"]:
+        raise SystemExit(f"goldens CLI check differs from the in-process "
+                         f"gate: {check}")
+    made = rec["check_made"]
+    if rec["make"]["rc"] or made["rc"] or (
+            made["box_parity"], made["conf_parity"]) != (1.0, 1.0):
+        raise SystemExit(f"goldens CLI make then check: {rec['make']}, "
+                         f"{made}")
+    if rec["launches"] != 1:
+        raise SystemExit(f"the goldens detector launched nms "
+                         f"{rec['launches']} times a call, not once")
+    if not within_c3(rec["reference_oracle_vs_kernel"]):
+        raise SystemExit(f"the reference oracle differs from the kernel's "
+                         f"detections: {rec['reference_oracle_vs_kernel']}")
+
+
+ONNX_RUN_EXPORTS = (GRAPH_ONNX, REPO / "tests" / "fixtures"
+                    / "crnn_opset13.onnx")
+ONNX_RUN_RUNS = 20
+ONNX_RUN_TOL = 1e-4  # graph_ops' tolerance for the graph runtime
+
+
+def onnx_run(device) -> dict:
+    """``python -m infercam_onnx_tpu_torch.onnx_run EXPORT --device cuda
+    --runs 20`` on the twin and the CRNN exports, and the same on the CPU
+    (the CPU runs start first, in the background): each exits 0, the
+    card's outputs are within 1e-4 of the CPU's on the same seeded inputs,
+    and its ms a run (CUDA events) is printed."""
+    import numpy as np
+
+    def start(export, dev, out):
+        return subprocess.Popen(
+            [sys.executable, "-m", "infercam_onnx_tpu_torch.onnx_run",
+             str(export), "--device", dev, "--runs", str(ONNX_RUN_RUNS),
+             "--out", out], cwd=str(REPO), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, what) -> str:
+        stdout, stderr = proc.communicate(timeout=600)
+        if proc.returncode:
+            raise SystemExit(f"onnx_run {what} failed (rc {proc.returncode})"
+                             f": {stderr[-3000:]}")
+        return stdout
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = {(e.stem, d): str(pathlib.Path(tmp) / f"{e.stem}_{d}.npz")
+               for e in ONNX_RUN_EXPORTS for d in ("card", "cpu")}
+        cpu = {e.stem: start(e, "cpu", npz[e.stem, "cpu"])
+               for e in ONNX_RUN_EXPORTS}
+        for export in ONNX_RUN_EXPORTS:
+            t0 = time.perf_counter()
+            stdout = finish(start(export, device.type,
+                                  npz[export.stem, "card"]),
+                            f"{export.name} --device {device.type}")
+            secs = time.perf_counter() - t0
+            finish(cpu[export.stem], f"{export.name} --device cpu")
+            lines = stdout.strip().splitlines()
+            runs = [ln for ln in lines if ln.startswith(f"{ONNX_RUN_RUNS} runs:")]
+            with np.load(npz[export.stem, "card"]) as got, \
+                    np.load(npz[export.stem, "cpu"]) as want:
+                diffs = {k: float(np.abs(got[k].astype(np.float64)
+                                         - want[k]).max())
+                         for k in want.files}
+                same_shapes = got.files == want.files and all(
+                    got[k].shape == want[k].shape for k in want.files)
+            out[export.stem] = {
+                "summary": lines[:-1], "s": secs,
+                "ms_a_run": float(runs[0].split()[2]) if runs else None,
+                "max_abs_diff_vs_cpu": diffs, "tolerance": ONNX_RUN_TOL,
+                "ok": same_shapes and bool(runs) and all(
+                    d <= ONNX_RUN_TOL for d in diffs.values())}
+    return out
+
+
+def check_onnx_run(rec: dict) -> None:
+    bad = {k: v for k, v in rec.items() if not v["ok"]}
+    if bad:
+        raise SystemExit(f"onnx_run on the card differs from the CPU's or "
+                         f"printed no timing: {bad}")
 
 
 SERVE_STREAMS = 16
@@ -3032,6 +3347,108 @@ def check_lockstep(rec: dict) -> None:
         raise SystemExit("member 0 runs no lockstep coordinator")
 
 
+# -- phase 5h: the serve CLI's throughput preset under the load generator ---
+
+CLI_PRESET = "throughput"
+
+
+def serve_cli_throughput(device) -> dict:
+    """``python -m infercam_onnx_tpu_torch.serve --preset throughput`` (ycbcr
+    decode at scale 2, queue 48, buckets 1-16, a 6 ms window, warm-up in the
+    background) on the frozen weights, on free ports, as a child process,
+    driven by ``python -m infercam_onnx_tpu_torch.loadgen --streams 16
+    --fps 30 --seconds 10`` over the synthetic 640x480 JPEGs. The server's
+    /stats is read before the load generator starts and once every frame
+    it sent was served or dropped (its batch count stops moving); between
+    the two, the NMS launches its /stats ``kernels`` counts must equal the
+    batches its meter counts."""
+    http, sock = free_ports(2)
+    log = tempfile.TemporaryFile()  # the server's output, shown on failure
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, "-m", "infercam_onnx_tpu_torch.serve",
+         "--device", device.type, "--preset", CLI_PRESET,
+         "--weights", str(WEIGHTS),
+         "--server-address", f"127.0.0.1:{http}",
+         "--socket-address", f"127.0.0.1:{sock}"],
+        cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT)
+
+    def fail(why: str):
+        log.seek(0)
+        raise SystemExit(f"serve_cli_throughput: {why}; server log: "
+                         + log.read().decode(errors="replace")[-3000:])
+
+    try:
+        deadline = time.time() + 300
+        while True:
+            try:
+                if not http_json(http, "/stats")["warming"]:
+                    break
+            except OSError:
+                pass
+            if server.poll() is not None or time.time() > deadline:
+                fail("the server did not come up")
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        before = http_json(http, "/stats")
+        load = subprocess.run(
+            [sys.executable, "-m", "infercam_onnx_tpu_torch.loadgen",
+             "--server", f"127.0.0.1:{http}", "--socket",
+             f"127.0.0.1:{sock}", "--streams", str(SERVE_STREAMS), "--fps",
+             str(SERVE_FPS), "--seconds", str(SERVE_SECONDS),
+             "--replay-dir", str(SYNTH_PICS)],
+            cwd=str(REPO), capture_output=True, text=True, timeout=300)
+        if load.returncode:
+            fail(f"the load generator failed (rc {load.returncode}): "
+                 f"{load.stderr[-2000:]}")
+        loadgen = json.loads(load.stdout.strip().splitlines()[-1])
+        settled, last = None, None  # /stats once the batch count stops
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            time.sleep(1.0)
+            settled = http_json(http, "/stats")
+            if last is not None and (settled["totals"].get("batches")
+                                     == last["totals"].get("batches")):
+                break
+            last = settled
+        if server.poll() is not None:
+            fail("the server exited under load")
+    finally:
+        if server.poll() is None:
+            server.send_signal(signal.SIGTERM)
+        try:
+            server.wait(60)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        log.close()
+
+    def delta(key: str) -> int:
+        return (settled["totals"].get(key, 0) - before["totals"].get(key, 0))
+
+    return {"preset": CLI_PRESET, "streams": SERVE_STREAMS,
+            "fps_per_stream": SERVE_FPS, "startup_s": startup_s,
+            "loadgen": loadgen, "stats_before": before,
+            "stats_after": settled,
+            "frames_inferred": delta("inferred_unique"),
+            "frames_dropped": delta("dropped"), "batches": delta("batches"),
+            "nms_launches": (settled["kernels"]["nms_launches"]
+                             - before["kernels"]["nms_launches"]),
+            "link": settled.get("link")}
+
+
+def check_serve_cli(rec: dict) -> None:
+    if not rec["frames_inferred"] or not rec["loadgen"]["server_inferred_fps"]:
+        raise SystemExit("the throughput preset server inferred no frame")
+    if rec["loadgen"]["sender_errors"]:
+        raise SystemExit(f"{rec['loadgen']['sender_errors']} load generator "
+                         f"senders stopped on an error")
+    if rec["nms_launches"] != rec["batches"]:
+        raise SystemExit(f"the throughput preset server launched nms "
+                         f"{rec['nms_launches']} times for {rec['batches']} "
+                         f"batches")
+
+
 TURNS_CODE = """
 import json, sys, time, torch
 import chip_smoke as cs
@@ -3220,6 +3637,23 @@ def main() -> int:
     ops = graph_ops(device)
     emit({"phase": "graph_ops", "gpu": name, "power_limit": power, **ops})
     check_graph_ops(ops)
+    new_phases_s = {}
+    t0 = time.perf_counter()
+    chain = weights_chain(device)
+    new_phases_s["weights_chain"] = time.perf_counter() - t0
+    emit({"phase": "weights_chain", "gpu": name, "power_limit": power,
+          **chain})
+    check_weights_chain(chain)
+    t0 = time.perf_counter()
+    gcli = goldens_cli(device, gold)
+    new_phases_s["goldens_cli"] = time.perf_counter() - t0
+    emit({"phase": "goldens_cli", "gpu": name, "power_limit": power, **gcli})
+    check_goldens_cli(gcli)
+    t0 = time.perf_counter()
+    runner = onnx_run(device)
+    new_phases_s["onnx_run"] = time.perf_counter() - t0
+    emit({"phase": "onnx_run", "gpu": name, "power_limit": power, **runner})
+    check_onnx_run(runner)
 
     serves = {}
     for phase, onnx in (("serve_graph", GRAPH_ONNX), ("serve_qdq", QDQ_ONNX)):
@@ -3233,8 +3667,12 @@ def main() -> int:
             ("serve", "pixels", "host", "pixels"),
             ("serve_ycbcr", "ycbcr", "host", "ycbcr"),
             ("serve_ycbcr_annotate", "ycbcr", "device", "ycbcr"),
-            ("serve_coefficients", "coefficients", "device", "coef")):
+            ("serve_coefficients", "coefficients", "device", "coef"),
+            ("serve_pixels_annotate", "pixels", "device", "pixels")):
+        t0 = time.perf_counter()
         rec = serves[phase] = serve_phase(device, decode_mode, annotate_mode)
+        if phase == "serve_pixels_annotate":
+            new_phases_s[phase] = time.perf_counter() - t0
         emit({"phase": phase, "gpu": name, "power_limit": power, **rec})
         check_serve(rec)
         if not rec["checked_batch_kinds"].get(unit):
@@ -3259,8 +3697,17 @@ def main() -> int:
     emit({"phase": "serve_lockstep", "gpu": name, "power_limit": power,
           **lockstep})
     check_lockstep(lockstep)
+    t0 = time.perf_counter()
+    cli = serve_cli_throughput(device)
+    new_phases_s["serve_cli_throughput"] = time.perf_counter() - t0
+    emit({"phase": "serve_cli_throughput", "gpu": name, "power_limit": power,
+          **cli})
+    check_serve_cli(cli)
 
-    emit({"phase": "total", "seconds": time.perf_counter() - started})
+    # PR 9's final run took 302.5 s (PERF.md section 5)
+    emit({"phase": "total", "seconds": time.perf_counter() - started,
+          "pr9_seconds": 302.5, "new_phases_s": new_phases_s,
+          "new_phases_total_s": sum(new_phases_s.values())})
     head = ktime["a_random_b16_k256"]
     emit({"kernels": [{
         "name": "nms_greedy_suppress", "route": "cuda",
@@ -3293,7 +3740,10 @@ def main() -> int:
             "qdq_2x_detect_program": qdq["launches_two_replicas"],
             **{phase: rec["nms_launches"] for phase, rec in serves.items()},
             "serve_lockstep": sum(m["window_nms_launches"]
-                                  for m in lockstep["members"])},
+                                  for m in lockstep["members"]),
+            "weights_chain": chain["launches"],
+            "goldens_cli": gcli["launches"],
+            "serve_cli_throughput": cli["nms_launches"]},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
         # at input (a), B=16 K=256 random boxes, as in the first version

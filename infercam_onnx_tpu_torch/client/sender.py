@@ -7,13 +7,20 @@ Protocol-identical to the reference client: connect, send
 frame, all bincode-encoded inside u32-BE length-delimited frames. The
 send loop retries forever with a 3 s backoff on any error.
 
-The frame source is ``ReplaySource``, which loops the JPEG files of a
-directory at a fixed rate (the V4L2 camera source is not ported yet).
+Frame sources:
+
+- ``ReplaySource``: loops the JPEG files of a directory at a fixed rate,
+  the webcam-free source;
+- ``CameraSource``: V4L2 MJPG capture (``client/camera.py``), the
+  reference's rscam path (reference sensors.rs:18-68). ``--camera`` is
+  repeatable: one process streams several cameras, each on its own
+  channel with its own reconnect loop.
 
 Usage::
 
     python -m infercam_onnx_tpu_torch.client.sender --channel simon \
         --replay-dir resources/test_pics_synthetic --fps 30
+    python -m infercam_onnx_tpu_torch.client.sender --camera /dev/video0
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ class FrameSource(Protocol):
 
 
 class ReplaySource:
-    """Loops JPEG files from a directory at ``fps`` frames per second."""
+    """Loops JPEG files from a directory at ``fps`` frames per second
+    (one pass when not ``loop_forever``)."""
 
-    def __init__(self, directory: str, fps: float = 30.0):
+    def __init__(self, directory: str, fps: float = 30.0,
+                 loop_forever: bool = True):
         self._files = sorted(
             os.path.join(directory, f) for f in os.listdir(directory)
             if f.lower().endswith((".jpg", ".jpeg")))
@@ -53,6 +62,7 @@ class ReplaySource:
         self._frames = [pathlib.Path(f).read_bytes()
                         for f in self._files]
         self._fps = fps
+        self._loop_forever = loop_forever
 
     async def frames(self) -> AsyncIterator[bytes]:
         period = 1.0 / self._fps if self._fps > 0 else 0.0
@@ -61,6 +71,8 @@ class ReplaySource:
                 yield data
                 if period:
                     await asyncio.sleep(period)
+            if not self._loop_forever:
+                return
 
 
 async def send_stream(
@@ -112,7 +124,8 @@ async def run_forever(source: FrameSource,
 
 def plan_channels(n_sources: int, channels: list[str]) -> list[str]:
     """Per-source channel names: the explicit list when it matches, else
-    a single base name fans out to ``base``, ``base-1``, ``base-2``, ..."""
+    a single base name fans out to ``base``, ``base-1``, ``base-2``, ...
+    (the first keeps the bare name, so one camera streams as before)."""
     if len(channels) == n_sources:
         return list(channels)
     if len(channels) == 1:
@@ -120,19 +133,28 @@ def plan_channels(n_sources: int, channels: list[str]) -> list[str]:
         return [base if i == 0 else f"{base}-{i}"
                 for i in range(n_sources)]
     raise ValueError(
-        f"{len(channels)} channel name(s) for {n_sources} source(s) — "
-        "pass one --channel per source, or a single base name")
+        f"{len(channels)} channel name(s) for {n_sources} camera(s) — "
+        "pass one --channel per --camera, or a single base name")
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
-        description="Stream JPEG files to the inference server.")
+        description="Stream JPEG frames from files or V4L2 cameras to the "
+                    "inference server.")
     ap.add_argument("--address", default="127.0.0.1:3001")
     ap.add_argument("--channel", action="append", default=None,
-                    help="stream name (default simon)")
-    ap.add_argument("--replay-dir", required=True,
+                    help="stream name (repeatable; one per --camera, "
+                         "or a single base name that fans out as "
+                         "base, base-1, ...; default simon)")
+    ap.add_argument("--replay-dir",
                     help="stream the JPEG files of this directory")
     ap.add_argument("--fps", type=float, default=30.0)
+    ap.add_argument("--camera", action="append", nargs="?",
+                    const="/dev/video0",
+                    help="capture from a V4L2 device (repeatable: one "
+                         "edge process can stream several cameras, "
+                         "each on its own channel with its own "
+                         "reconnect loop; default /dev/video0)")
     ap.add_argument("--log-level", default="INFO")
     args = ap.parse_args(argv)
 
@@ -142,8 +164,15 @@ def main(argv: list[str] | None = None) -> int:
                "%(message)s",
         datefmt="%Y-%m-%dT%H:%M:%S")
 
-    sources: list[FrameSource] = [ReplaySource(args.replay_dir,
-                                               fps=args.fps)]
+    sources: list[FrameSource] = []
+    if args.camera:
+        from infercam_onnx_tpu_torch.client.camera import CameraSource
+
+        sources = [CameraSource(dev) for dev in args.camera]
+    elif args.replay_dir:
+        sources = [ReplaySource(args.replay_dir, fps=args.fps)]
+    else:
+        ap.error("one of --replay-dir or --camera is required")
     try:
         channels = plan_channels(len(sources), args.channel or ["simon"])
     except ValueError as e:

@@ -12,8 +12,11 @@ writes the annotated JPEG. ``--weights`` reads an .npz in either layout
 `models.checkpoint.load_params` knows; ``--onnx`` reads an UltraFace ONNX
 export through the structural converter (`models.convert.params_from_onnx`),
 or with ``--runtime graph`` runs the graph itself in float32
-(`models.onnx_exec.GraphDetector`). Without either the weights are
-deterministic random ones from ``--seed``.
+(`models.onnx_exec.GraphDetector`). Without either the detector takes
+the JAX package's weights chain: the converted .npz cache, then the
+cached or downloaded ONNX file (both under
+``$XDG_CACHE_HOME/infercam_onnx_tpu``), then deterministic random
+weights from ``--seed``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="candidates entering NMS")
     ap.add_argument("--max-detections", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights used without --weights")
+                    help="seed of the random weights the weights chain "
+                         "ends in")
     ap.add_argument("--weights", default=None,
                     help=".npz weights: upstream names or the JAX "
                          "package's checkpoint layout")

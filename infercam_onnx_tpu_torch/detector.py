@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 
 import numpy as np
 import torch
@@ -30,6 +31,7 @@ from infercam_onnx_tpu_torch.config import (DetectorConfig, full_float32,
                                             resolve_device)
 from infercam_onnx_tpu_torch.models import checkpoint
 from infercam_onnx_tpu_torch.models import ultraface as uf
+from infercam_onnx_tpu_torch.models.convert import load_or_download_params
 from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
 from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
                                                      decode_plane,
@@ -42,6 +44,7 @@ from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
     unpack12_device)
 from infercam_onnx_tpu_torch.ops.postprocess import batched_postprocess
 from infercam_onnx_tpu_torch.ops.preprocess import Preprocessor, preprocess_images
+from infercam_onnx_tpu_torch.utils.cache import cache_dir
 
 log = logging.getLogger(__name__)
 
@@ -336,8 +339,9 @@ class Detector:
 
     Weights, in order: ``params`` (a JAX-layout pytree), else the .npz at
     ``weights`` (either layout `models.checkpoint.load_params` reads),
-    else deterministic random weights ``init_params(rng,
-    background_bias=0.75)``. There is no download path.
+    else the JAX package's chain (`_load_weights`): the converted .npz
+    cache, then the cached or downloaded ONNX file, then deterministic
+    random weights ``init_params(rng, background_bias=0.75)``.
     """
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
@@ -353,10 +357,7 @@ class Detector:
         if params is None and weights is not None:
             params = checkpoint.load_params(weights)
         if params is None:
-            log.warning("no UltraFace weights given; using deterministic "
-                        "random weights (seed %d)", rng)
-            params = uf.init_params(rng, background_bias=0.75,
-                                    arch=uf.arch_of(config.variant))
+            params = self._load_weights(config.variant, rng)
         self.width, self.height = uf.VARIANTS[config.variant]
         self.model = uf.UltraFace.from_params(params).to(
             device=self.device, dtype=_DTYPES[config.compute_dtype])
@@ -364,6 +365,30 @@ class Detector:
             uf.generate_priors(self.width, self.height)).to(self.device)
         self.preprocessor = Preprocessor(self.width, self.height,
                                          self.device)
+
+    @staticmethod
+    def _load_weights(variant: str, rng: int):
+        """Converted-npz cache -> ONNX download-on-miss -> random (the JAX
+        ``Detector._load_weights``; the cache is the JAX package's
+        folder, `utils.cache.cache_dir`)."""
+        npz = os.path.join(cache_dir("weights"), f"ultraface-{variant}.npz")
+        if os.path.isfile(npz):
+            try:
+                return checkpoint.load_params(npz)
+            except Exception as e:
+                # a truncated or corrupt cache file must not wedge every
+                # start-up until someone deletes it by hand
+                log.warning("corrupt weights cache %s (%s); rebuilding",
+                            npz, e)
+                os.unlink(npz)
+        params = load_or_download_params(variant)
+        if params is not None:
+            checkpoint.save_params(params, npz)
+            return params
+        log.warning("UltraFace %s weights unavailable (offline); using "
+                    "deterministic random weights", variant)
+        return uf.init_params(rng, background_bias=0.75,
+                              arch=uf.arch_of(variant))
 
     # -- device program ----------------------------------------------------
 

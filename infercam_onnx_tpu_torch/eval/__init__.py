@@ -1,1 +1,7 @@
-"""Golden-detection checks and the parity metrics behind them."""
+"""Evaluation: detection parity metrics and golden-output fixtures."""
+
+from infercam_onnx_tpu_torch.eval.parity import (  # noqa: F401
+    fidelity_gate,
+    match_detections,
+    parity_report,
+)

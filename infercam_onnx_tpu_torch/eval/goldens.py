@@ -1,136 +1,48 @@
-"""Golden detection checks with the >=95% box/confidence fidelity gate.
+"""Golden detection fixtures: make, check and the parity gate (the port of
+``infercam_onnx_tpu/eval/goldens.py``).
 
-The port's copy of ``infercam_onnx_tpu/eval/goldens.py``
-(`check_against_goldens` and the frame loading it needs) and of
-``infercam_onnx_tpu/eval/parity.py``:
+The fixtures replace and extend the reference's only behavioural oracle
+(exact face counts over resources/test_pics, reference
+infer_server/tests/integration_tests.rs:20-34) with stored per-box
+goldens and the >=95% parity gate of ``eval/parity.py``. A fixture is a
+JSON file ``{"variant": ..., "resize": [w, h] | null, "detections":
+{filename: [[x0, y0, x1, y1, conf], ...]}}``; the JAX package's CLI and
+this one write and read the same files.
 
-- detections are greedily matched by IoU (highest first);
-- a match counts toward *box parity* when IoU >= `IOU_THRESH` (or the
-  caller's ``iou_thresh``) and
-  toward *confidence parity* when also ``|conf_got - conf_want| <=
-  CONF_TOL`` (or ``conf_tol``);
-- parity = matched / max(len(want), len(got)), so both misses and extras
-  count against it.
+CLI::
 
-A goldens fixture is a JSON file ``{"resize": [w, h] | null,
-"detections": {filename: [[x0, y0, x1, y1, conf], ...]}}``.
+    python -m infercam_onnx_tpu_torch.eval.goldens make --dir PICS \
+        --out g.json [--device cuda|cpu]
+    python -m infercam_onnx_tpu_torch.eval.goldens check --dir PICS \
+        --goldens g.json [--device cuda|cpu]
+
+``make`` runs the detector over the JPEGs of ``--dir`` and stores its
+detections; ``check`` runs it again and applies the gate against the
+stored goldens, prints the report as one JSON line and exits 1 when the
+gate fails. Without ``--weights`` the detector takes its weights chain
+(the converted cache, the cached or downloaded ONNX, then random weights
+from ``--seed``), as the JAX CLI's does.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import argparse
 import json
 import os
-from typing import Sequence
+import sys
 
 import numpy as np
 
 from infercam_onnx_tpu_torch import codec
-
-EPS = 1e-7
-IOU_THRESH = 0.5
-CONF_TOL = 0.02
-MIN_PARITY = 0.95
-Detections = Sequence[tuple[np.ndarray, float]]
-
-
-def _area(b) -> float:
-    w = b[2] - b[0]
-    h = b[3] - b[1]
-    return 0.0 if (w < 0.0 or h < 0.0) else float(w * h)
-
-
-def iou(a, b) -> float:
-    """IoU of two corner boxes with the reference's EPS guard."""
-    overlap = [max(a[0], b[0]), max(a[1], b[1]),
-               min(a[2], b[2]), min(a[3], b[3])]
-    inter = _area(overlap)
-    return inter / (_area(a) + _area(b) - inter + EPS)
-
-
-@dataclasses.dataclass
-class ParityReport:
-    images: int = 0
-    want_total: int = 0
-    got_total: int = 0
-    box_matched: int = 0
-    conf_matched: int = 0
-
-    @property
-    def box_parity(self) -> float:
-        denom = max(self.want_total, self.got_total)
-        return self.box_matched / denom if denom else 1.0
-
-    @property
-    def conf_parity(self) -> float:
-        denom = max(self.want_total, self.got_total)
-        return self.conf_matched / denom if denom else 1.0
-
-    def as_dict(self) -> dict:
-        return {
-            "images": self.images,
-            "want_total": self.want_total,
-            "got_total": self.got_total,
-            "box_matched": self.box_matched,
-            "conf_matched": self.conf_matched,
-            "box_parity": round(self.box_parity, 4),
-            "conf_parity": round(self.conf_parity, 4),
-        }
-
-
-def match_detections(got: Detections, want: Detections,
-                     iou_thresh: float = IOU_THRESH
-                     ) -> list[tuple[int, int, float]]:
-    """Greedy IoU matching: [(got_idx, want_idx, iou)], best IoU first."""
-    pairs = []
-    for i, (gb, _) in enumerate(got):
-        for j, (wb, _) in enumerate(want):
-            v = iou(np.asarray(gb, np.float64), np.asarray(wb, np.float64))
-            if v >= iou_thresh:
-                pairs.append((v, i, j))
-    pairs.sort(reverse=True)
-    used_g: set[int] = set()
-    used_w: set[int] = set()
-    out = []
-    for v, i, j in pairs:
-        if i in used_g or j in used_w:
-            continue
-        used_g.add(i)
-        used_w.add(j)
-        out.append((i, j, v))
-    return out
-
-
-def parity_report(got_sets: Sequence[Detections],
-                  want_sets: Sequence[Detections], *,
-                  iou_thresh: float = IOU_THRESH,
-                  conf_tol: float = CONF_TOL) -> ParityReport:
-    """Box and confidence parity of ``got_sets`` against ``want_sets``;
-    the goldens gate takes the defaults, the packed-YCbCr path's parity
-    against the pixels path IoU 0.8 and confidence tolerance 0.05."""
-    report = ParityReport()
-    for got, want in zip(got_sets, want_sets):
-        report.images += 1
-        report.want_total += len(want)
-        report.got_total += len(got)
-        for gi, wi, _ in match_detections(got, want, iou_thresh):
-            report.box_matched += 1
-            if abs(got[gi][1] - want[wi][1]) <= conf_tol:
-                report.conf_matched += 1
-    return report
-
-
-def fidelity_gate(report: ParityReport) -> bool:
-    """True iff both box and confidence parity clear `MIN_PARITY`."""
-    return (report.box_parity >= MIN_PARITY
-            and report.conf_parity >= MIN_PARITY)
+from infercam_onnx_tpu_torch.eval.parity import fidelity_gate, parity_report
 
 
 def load_directory_frames(directory: str,
                           resize: tuple[int, int] | None = None
                           ) -> dict[str, np.ndarray]:
     """filename -> decoded [H, W, 3] uint8 frame for every JPEG in dir;
-    ``resize=(w, h)`` applies a PIL-bilinear resize after decode."""
+    ``resize=(w, h)`` applies a PIL-bilinear resize after decode, so one
+    program shape serves the whole directory."""
     out: dict[str, np.ndarray] = {}
     for name in sorted(os.listdir(directory)):
         if not name.lower().endswith((".jpg", ".jpeg")):
@@ -157,25 +69,103 @@ def detect_directory(detector, directory: str,
     return out
 
 
-def _as_detection_sets(table: dict[str, list], names: list[str]):
+def load_goldens(path: str) -> dict[str, list]:
+    """The ``detections`` table of a goldens fixture."""
+    with open(path) as f:
+        return json.load(f)["detections"]
+
+
+def as_detection_sets(table: dict[str, list], names: list[str]):
+    """A detections table as one [(bbox, conf), ...] list per name (empty
+    for a name the table lacks)."""
     return [[(np.asarray(row[:4], np.float32), row[4])
              for row in table.get(n, [])] for n in names]
 
 
-def check_against_goldens(detector, directory: str,
-                          goldens_path: str) -> dict:
-    """Run ``detector`` over the JPEGs in ``directory`` (resized as the
-    fixture says) and gate the result against the fixture;
+def check_against_goldens(detector, directory: str, goldens_path: str, *,
+                          min_parity: float = 0.95,
+                          resize: tuple[int, int] | None = None) -> dict:
+    """Run ``detector`` over the JPEGs in ``directory`` and gate the result
+    against the fixture; ``resize`` wins over the fixture's own.
     ``result["passed"]`` is the verdict."""
     with open(goldens_path) as f:
         meta = json.load(f)
-    resize = tuple(meta["resize"]) if meta.get("resize") else None
+    if resize is None and meta.get("resize"):
+        resize = tuple(meta["resize"])
     got_table = detect_directory(detector, directory, resize=resize)
     want_table = meta["detections"]
     names = sorted(set(got_table) | set(want_table))
-    report = parity_report(_as_detection_sets(got_table, names),
-                           _as_detection_sets(want_table, names))
+    report = parity_report(as_detection_sets(got_table, names),
+                           as_detection_sets(want_table, names))
     result = report.as_dict()
-    result["passed"] = fidelity_gate(report)
-    result["min_parity"] = MIN_PARITY
+    result["passed"] = fidelity_gate(report, min_parity)
+    result["min_parity"] = min_parity
     return result
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Make or check golden detection fixtures with the "
+                    "PyTorch port.")
+    ap.add_argument("command", choices=["make", "check"])
+    ap.add_argument("--dir", required=True, help="directory of JPEGs")
+    ap.add_argument("--out", help="goldens file to write (make)")
+    ap.add_argument("--goldens", dest="goldens",
+                    help="goldens file to check against")
+    ap.add_argument("--variant", default="RFB-640",
+                    choices=["RFB-320", "RFB-640", "slim-320", "slim-640"])
+    ap.add_argument("--min-parity", type=float, default=0.95)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--resize", default=None,
+                    help="WxH: PIL-bilinear resize after decode (pins "
+                         "one program shape; recorded in the fixture)")
+    ap.add_argument("--weights", default=None,
+                    help=".npz weights (upstream names or the checkpoint "
+                         "layout) instead of the cache/download/random "
+                         "chain")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--top-k", type=int, default=512)
+    ap.add_argument("--max-detections", type=int, default=256)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+
+    detector = Detector(
+        DetectorConfig(variant=args.variant,
+                       compute_dtype=args.compute_dtype,
+                       top_k=args.top_k,
+                       max_detections=args.max_detections),
+        weights=args.weights, rng=args.seed, device=args.device)
+
+    resize = None
+    if args.resize:
+        w, h = args.resize.lower().split("x")
+        resize = (int(w), int(h))
+
+    if args.command == "make":
+        if not args.out:
+            ap.error("make requires --out")
+        table = detect_directory(detector, args.dir, resize=resize)
+        with open(args.out, "w") as f:
+            json.dump({"variant": args.variant,
+                       "resize": resize,
+                       "detections": table}, f, indent=1)
+        total = sum(len(v) for v in table.values())
+        print(f"wrote {len(table)} images, {total} detections "
+              f"to {args.out}")
+        return 0
+
+    if not args.goldens:
+        ap.error("check requires --goldens")
+    result = check_against_goldens(detector, args.dir, args.goldens,
+                                   min_parity=args.min_parity,
+                                   resize=resize)
+    print(json.dumps(result))
+    return 0 if result["passed"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

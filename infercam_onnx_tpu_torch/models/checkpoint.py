@@ -1,10 +1,12 @@
-"""Reading weight files (.npz) into the JAX-layout parameter pytree.
+"""Weight files (.npz) of the JAX-layout parameter pytree.
 
-Two layouts are read, told apart by their keys:
+`save_params` writes the JAX package's checkpoint layout
+(``infercam_onnx_tpu/models/checkpoint.py`` ``save_params``), so each
+package reads the other's files. Two layouts are read, told apart by
+their keys:
 
-- the JAX package's checkpoints (``infercam_onnx_tpu/models/checkpoint.py``
-  ``save_params``): pytree paths joined by ``::``, HWIO weights, BatchNorm
-  already folded;
+- checkpoints (`save_params`, here or in the JAX package): pytree paths
+  joined by ``::``, HWIO weights, BatchNorm already folded;
 - upstream-named state dicts (``base_net.0.0.weight``, ...), such as the
   committed ``resources/weights/ultraface-twin.npz``, converted by
   `convert.params_from_state_dict`.
@@ -42,6 +44,28 @@ def _child(node: Any, part: str, default: Any) -> Any:
             node[i] = default
         return node[i]
     return node.setdefault(part, default)
+
+
+def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
+    """Pytree -> {"a::0::w": leaf}; tensor leaves come to the host."""
+    out: dict[str, np.ndarray] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}{_SEP}"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}{_SEP}"))
+    else:
+        if hasattr(tree, "detach"):  # a torch tensor, wherever it lies
+            tree = tree.detach().cpu().numpy()
+        out[prefix.rstrip(":")] = np.asarray(tree)
+    return out
+
+
+def save_params(params: Any, path: str) -> None:
+    """Write a parameter pytree (NumPy or tensor leaves) as a flat .npz
+    keyed by ``::``-joined pytree paths."""
+    np.savez_compressed(path, **_flatten(params))
 
 
 def load_params(path: str) -> Any:

@@ -15,21 +15,40 @@
   upstream SSD's `interleaved_conv_slots`) and places the weights by
   structure, not by name, so BN-folded exports (renamed initializers) load
   too. A copy of the JAX converter (``convert.py:253-558`` there).
+- `state_dict_from_params`: the inverse of `params_from_state_dict`, the
+  folded affine written as an identity-statistics BatchNorm.
+- `load_or_download_params`: the ONNX file the reference downloads, read
+  from the user cache (`cached_model_path`) and fetched on a miss. The
+  cache is the JAX package's own folder, so both packages share it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+import logging
+import os
+from typing import Any, Callable, Mapping
 
 import numpy as np
 
 from infercam_onnx_tpu_torch.models.onnx_reader import read_onnx_graph
+from infercam_onnx_tpu_torch.utils.cache import cache_dir
+
+log = logging.getLogger("infercam.convert")
 
 Array = np.ndarray
 StateDict = Mapping[str, Array]
 
 BN_EPS = 1e-5  # upstream BatchNorm2d default
+
+# Download links used by the reference (reference nn.rs:21-22) plus the
+# slim family from the same upstream project.
+ULTRAFACE_URLS = {
+    "RFB-640": "https://github.com/onnx/models/raw/main/vision/body_analysis/ultraface/models/version-RFB-640.onnx",
+    "RFB-320": "https://github.com/onnx/models/raw/main/vision/body_analysis/ultraface/models/version-RFB-320.onnx",
+    "slim-640": "https://github.com/Linzaer/Ultra-Light-Fast-Generic-Face-Detector-1MB/raw/master/models/onnx/version-slim-640.onnx",
+    "slim-320": "https://github.com/Linzaer/Ultra-Light-Fast-Generic-Face-Detector-1MB/raw/master/models/onnx/version-slim-320.onnx",
+}
 
 
 def fold_bn(gamma: Array, beta: Array, mean: Array, var: Array,
@@ -156,6 +175,62 @@ def params_from_jax(params: Any, prefix: str = "") -> dict[str, Array]:
     out: dict[str, Array] = {}
     for k, v in items:
         out.update(params_from_jax(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def state_dict_from_params(params: Any) -> dict[str, Array]:
+    """JAX-layout pytree -> upstream-named state dict.
+
+    The folded conv affine (scale, bias) becomes an identity-statistics
+    BatchNorm (mean 0, var 1 - eps, gamma = scale, beta = bias), so
+    `params_from_state_dict` reads it back exactly and a torch model with
+    the upstream module structure can ``load_state_dict`` it."""
+    out: dict[str, Array] = {}
+
+    def inv_cbr(p: dict, conv: str, bn: str) -> None:
+        out[f"{conv}.weight"] = _hwio_to_oihw(np.asarray(p["w"]))
+        n = np.asarray(p["scale"]).shape[0]
+        out[f"{bn}.weight"] = np.asarray(p["scale"], np.float32)
+        out[f"{bn}.bias"] = np.asarray(p["bias"], np.float32)
+        out[f"{bn}.running_mean"] = np.zeros(n, np.float32)
+        out[f"{bn}.running_var"] = np.full(n, 1.0 - BN_EPS, np.float32)
+
+    def inv_conv_dw(p: dict, prefix: str) -> None:
+        inv_cbr(p["dw"], f"{prefix}.0", f"{prefix}.1")
+        inv_cbr(p["pw"], f"{prefix}.3", f"{prefix}.4")
+
+    def inv_biased(p: dict, prefix: str) -> None:
+        out[f"{prefix}.weight"] = _hwio_to_oihw(np.asarray(p["w"]))
+        out[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
+
+    def inv_separable(p: dict, prefix: str) -> None:
+        inv_biased(p["dw"], f"{prefix}.0")
+        inv_biased(p["pw"], f"{prefix}.2")
+
+    base = params["base"]
+    inv_cbr(base[0], "base_net.0.0", "base_net.0.1")
+    for i in (*range(1, 7), *range(8, 13)):
+        inv_conv_dw(base[i], f"base_net.{i}")
+    if "branch0" in base[7]:
+        for bname in ("branch0", "branch1", "branch2"):
+            for j, blk in enumerate(base[7][bname]):
+                inv_cbr(blk, f"base_net.7.{bname}.{j}.conv",
+                        f"base_net.7.{bname}.{j}.bn")
+        inv_cbr(base[7]["conv_linear"], "base_net.7.ConvLinear.conv",
+                "base_net.7.ConvLinear.bn")
+        inv_cbr(base[7]["shortcut"], "base_net.7.shortcut.conv",
+                "base_net.7.shortcut.bn")
+    else:
+        inv_conv_dw(base[7], "base_net.7")
+    inv_biased(params["extras"]["proj"], "extras.0.0")
+    inv_separable(params["extras"]["sep"], "extras.0.2")
+    for level in range(4):
+        for head, key in (("classification_headers", "cls_heads"),
+                          ("regression_headers", "reg_heads")):
+            if level < 3:
+                inv_separable(params[key][level], f"{head}.{level}")
+            else:
+                inv_biased(params[key][level], f"{head}.{level}")
     return out
 
 
@@ -444,3 +519,46 @@ def params_from_onnx(path: str) -> dict:
     against the published architecture and convert its weights
     structurally (`params_from_graph`)."""
     return params_from_graph(read_onnx_graph(path))
+
+
+# -- the downloaded-model cache (reference nn.rs:143-162) ------------------
+
+
+def cached_model_path(variant: str) -> str:
+    """Cache path of the ONNX file of ``variant``:
+    ``$XDG_CACHE_HOME/infercam_onnx_tpu/ultraface-<variant>.onnx``."""
+    return os.path.join(cache_dir(), f"ultraface-{variant}.onnx")
+
+
+def load_or_download_params(
+    variant: str, *, download: Callable[[str, str], None] | None = None,
+) -> dict | None:
+    """The real UltraFace weights of ``variant``, from the cached ONNX file
+    or, on a miss, downloaded into it (``download(url, path)``, by
+    default `utils.download.download_file`).
+
+    Returns None where the file is absent and the download fails (offline),
+    and where the cached file does not convert: that file is moved to
+    ``.bad``, so the next run downloads it again."""
+    path = cached_model_path(variant)
+    if not os.path.isfile(path):
+        if download is None:
+            from infercam_onnx_tpu_torch.utils.download import download_file
+
+            download = download_file
+        try:
+            download(ULTRAFACE_URLS[variant], path)
+        except Exception:  # offline, refused, or a failing downloader
+            return None
+    if not os.path.isfile(path):
+        return None
+    try:
+        return params_from_onnx(path)
+    except ValueError as e:
+        log.warning("cached ONNX %s failed to load (%s); quarantined as "
+                    ".bad", path, e)
+        try:
+            os.replace(path, path + ".bad")
+        except OSError:
+            pass
+        return None

@@ -2764,6 +2764,12 @@ class GraphExecutor(_Scope):
         return tuple(env[name] for name in self.output_names)
 
 
+def load_graph_executor(path: str) -> GraphExecutor:
+    """Parse and validate an ONNX file into an executor (on the CPU; move
+    it with ``.to(device)``)."""
+    return GraphExecutor(read_onnx_graph(path))
+
+
 class GraphModel(torch.nn.Module):
     """A graph mapping one ``[1, 3, H, W]`` float image to ``(scores [1, K,
     2], boxes [1, K, 4])``, as the port's detect programs call a model:

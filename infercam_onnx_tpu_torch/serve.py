@@ -35,8 +35,9 @@ through the structural converter; with ``--runtime graph`` the server runs
 the graph itself (`models.onnx_exec.GraphDetector`, float32; no tiling and
 no lockstep, as in the JAX server).
 ``--device`` picks the device (``cuda`` unless asked otherwise); without
-``--weights`` or ``--onnx`` the weights are the detector's seeded random
-ones; ``--compute-dtype`` is the native conv trunk's (the JAX server's
+``--weights`` or ``--onnx`` the detector takes its weights chain (the
+converted cache, the cached or downloaded ONNX, then seeded random
+weights), as the JAX server's does; ``--compute-dtype`` is the native conv trunk's (the JAX server's
 native runtime runs bfloat16). Port 0 in an address binds a free port.
 """
 

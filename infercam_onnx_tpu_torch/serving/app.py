@@ -222,7 +222,8 @@ async def start_server(
                                         lockstep=bool(lockstep_address)),
                       warming=lambda: worker.warming,
                       link=lambda: worker.link_status,
-                      lockstep=lockstep_counts if is_lockstep else None)
+                      lockstep=lockstep_counts if is_lockstep else None,
+                      kernels=lambda: {"nms_launches": nms.kernel.launches})
     hhost, hport = _split_addr(server_config.http_address)
     await http.start(hhost, hport)
 

@@ -9,8 +9,9 @@ infer_server/src/endpoints.rs):
 - ``GET /detections?name=X`` -> one NDJSON record per inferred frame
 - ``GET /snapshot?name=X[&raw=1][&timeout=S]`` -> one JPEG
 - ``GET /stats`` (JSON: the meter's counters, the topology, whether the
-  warm-up runs, ``link``, the link probe's decision table, and on a
-  lockstep member ``lockstep``, its dispatch counts),
+  warm-up runs, ``link``, the link probe's decision table, ``kernels``,
+  the hand kernels' launch counts since start-up, and on a lockstep
+  member ``lockstep``, its dispatch counts),
   ``GET /metrics`` (Prometheus text), ``GET /`` (a status page listing
   the active streams)
 
@@ -73,7 +74,7 @@ def _simple_response(status: str, body: bytes,
 
 class HttpServer:
     def __init__(self, router: FrameRouter, topology: dict | None = None,
-                 warming=None, link=None, lockstep=None):
+                 warming=None, link=None, lockstep=None, kernels=None):
         self._router = router
         # serving topology ({"devices", "processes", "lockstep",
         # "platform", "device", "detector"}) shown in /stats, /metrics and
@@ -86,6 +87,8 @@ class HttpServer:
         self._link = link
         # callable -> dict: a lockstep member's dispatch counts, in /stats
         self._lockstep = lockstep
+        # callable -> dict: the hand kernels' launch counts, in /stats
+        self._kernels = kernels
         self._server: asyncio.AbstractServer | None = None
         self._tasks: set[asyncio.Task] = set()  # live connection handlers
 
@@ -204,6 +207,8 @@ class HttpServer:
                             payload["link"] = status
                     if self._lockstep is not None:
                         payload["lockstep"] = self._lockstep()
+                    if self._kernels is not None:
+                        payload["kernels"] = self._kernels()
                     writer.write(_simple_response(
                         "200 OK", json.dumps(payload).encode(),
                         "application/json", keep_alive=keep))

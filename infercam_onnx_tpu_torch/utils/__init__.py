@@ -1,1 +1,2 @@
-"""Stage timing and the device trace."""
+"""Stage timing and the device trace, the user cache directory and
+downloads."""

@@ -67,6 +67,7 @@ from tests.test_torch_port_native import smooth_jpeg
 from tests.test_torch_port_serving import (_GatedSource, _serving,
                                            _subscribed, _tap_units, _until,
                                            _Viewer)
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 CONFIG = DetectorConfig(compute_dtype="float32")
 SAMPLINGS = {"420": (2, 2), "422": (2, 1), "444": (1, 1)}

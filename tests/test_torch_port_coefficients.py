@@ -65,6 +65,7 @@ from tests.test_torch_port_native import smooth_jpeg
 from tests.test_torch_port_serving import (_GatedSource, _detections_of,
                                            _serving, _subscribed, _tap_units,
                                            _until, _Viewer)
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

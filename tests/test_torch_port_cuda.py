@@ -26,6 +26,7 @@ from infercam_onnx_tpu_torch.detector import Detector
 from infercam_onnx_tpu_torch.eval.goldens import load_directory_frames
 from infercam_onnx_tpu_torch.ops import nms
 from infercam_onnx_tpu_torch.ops import postprocess as pp
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -796,3 +797,62 @@ def test_control_flow_under_vmap_on_cuda_matches_cpu(cuda):
                         want if isinstance(want, tuple) else (want,)):
             assert g.device.type == "cuda"
             torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-6)
+
+
+def test_weights_chain_on_cuda_takes_the_cached_onnx(cuda, tmp_path,
+                                                    monkeypatch):
+    """With the twin export in the user cache, Detector() on the card runs
+    it: bit-identical to the detector given the export's params, and the
+    .npz cache it writes gives a bit-identical detector again."""
+    import shutil
+
+    from infercam_onnx_tpu_torch.models import convert
+
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    onnx = REPO / "tests" / "fixtures" / "ultraface_twin_rfb320.onnx"
+    shutil.copyfile(onnx, convert.cached_model_path("RFB-320"))
+    frames = np.stack(list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic")).values()))
+    config = DetectorConfig(compute_dtype="float32")
+    got = Detector(config, device=cuda).run_device(frames, pack_output=True)
+    npz = tmp_path / "infercam_onnx_tpu" / "weights" / "ultraface-RFB-320.npz"
+    assert npz.is_file()
+    want = Detector(config, params=convert.params_from_onnx(str(onnx)),
+                    device=cuda).run_device(frames, pack_output=True)
+    again = Detector(config, device=cuda).run_device(frames,
+                                                     pack_output=True)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert int(got[..., 5].sum()) >= 10
+
+
+def test_goldens_cli_check_on_cuda(cuda, capsys):
+    from infercam_onnx_tpu_torch.eval import goldens
+
+    rc = goldens.main([
+        "check", "--device", "cuda", "--variant", "RFB-320",
+        "--compute-dtype", "float32", "--weights",
+        str(REPO / "resources" / "weights" / "ultraface-twin.npz"),
+        "--dir", str(REPO / "resources" / "test_pics_synthetic"),
+        "--goldens",
+        str(REPO / "tests" / "fixtures" / "goldens_twin_rfb320_synthetic.json")])
+    result = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and result["passed"], result
+
+
+@pytest.mark.parametrize("export", ["ultraface_twin_rfb320.onnx",
+                                    "crnn_opset13.onnx"])
+def test_onnx_run_on_cuda_matches_cpu(cuda, export, tmp_path, capsys):
+    """The same seeded inputs through onnx_run on the card and on the CPU:
+    every output within 1e-4 (chip_smoke.py graph_ops' tolerance)."""
+    from infercam_onnx_tpu_torch import onnx_run
+
+    path = str(REPO / "tests" / "fixtures" / export)
+    for device in ("cuda", "cpu"):
+        assert onnx_run.main([path, "--device", device, "--runs", "3",
+                              "--out", str(tmp_path / f"{device}.npz")]) == 0
+    assert "3 runs: " in capsys.readouterr().out
+    with np.load(tmp_path / "cuda.npz") as got, \
+            np.load(tmp_path / "cpu.npz") as want:
+        assert got.files == want.files
+        for k in want.files:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4)

@@ -32,6 +32,7 @@ from infercam_onnx_tpu_torch.config import DetectorConfig
 from infercam_onnx_tpu_torch.eval import goldens as tgoldens
 
 from tests.test_goldens_fixtures import FIXTURES, SYNTH_PICS, WEIGHTS
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONFIG = DetectorConfig(compute_dtype="float32", top_k=512,

@@ -61,6 +61,7 @@ from test_torch_port_serving import (_detections_of,  # noqa: E402
                                      _GatedSource, _serving, _subscribed,
                                      _tap_units, _until, _Viewer)
 from torch_twin import UltraFaceTwin  # noqa: E402
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / \
     "ultraface_twin_rfb320.onnx"

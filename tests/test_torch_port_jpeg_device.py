@@ -48,6 +48,7 @@ from infercam_onnx_tpu_torch.ops import jpeg_device as tjd
 
 from tests.test_goldens_fixtures import SYNTH_PICS, WEIGHTS
 from tests.test_torch_port_native import smooth_jpeg
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 CONFIG = DetectorConfig(compute_dtype="float32", top_k=512,
                         max_detections=256)

@@ -25,6 +25,7 @@ from infercam_onnx_tpu_torch.detector import Detector
 from infercam_onnx_tpu_torch.serving import link
 from infercam_onnx_tpu_torch.serving.app import start_server
 from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 RATES = [0.0, 5.0, 9.99, 10.0, 30.0, 39.9, 40.0, 42.0, 49.0, 70.0, 249.9,
          250.0, 1500.0, 25000.0]

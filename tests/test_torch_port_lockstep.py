@@ -54,6 +54,7 @@ from infercam_onnx_tpu_torch.serving.router import InferJob
 from tests.test_goldens_fixtures import WEIGHTS
 from tests.test_torch_port_annotate import assert_detections_match
 from tests.test_torch_port_parallel import (REPO, frames, free_port, jpegs)
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 CONFIG = DetectorConfig(compute_dtype="float32")
 

@@ -48,6 +48,7 @@ from tests.test_goldens_fixtures import SYNTH_PICS, WEIGHTS
 from tests.test_torch_port_annotate import (assert_coefficients_match,
                                             assert_detections_match,
                                             packed_coefficients)
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 REPO = SYNTH_PICS.parents[1]
 

@@ -49,7 +49,7 @@ from infercam_onnx_tpu.models.onnx_reader import (  # noqa: E402
 from infercam_onnx_tpu_torch import codec, detect  # noqa: E402
 from infercam_onnx_tpu_torch.config import (DetectorConfig,  # noqa: E402
                                             EngineConfig, ServerConfig)
-from infercam_onnx_tpu_torch.eval.goldens import (  # noqa: E402
+from infercam_onnx_tpu_torch.eval.parity import (  # noqa: E402
     match_detections, parity_report)
 from infercam_onnx_tpu_torch.detector import unpack_detections  # noqa: E402
 from infercam_onnx_tpu_torch.models import onnx_exec as px  # noqa: E402
@@ -65,6 +65,7 @@ from test_torch_port_graph import (FIXTURE, SYNTH_PICS,  # noqa: E402
                                    _serve_graph)
 from test_torch_port_onnx import _same_graph  # noqa: E402
 from chip_smoke import qdq_agreement  # noqa: E402
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 QDQ_FIXTURE = pathlib.Path(__file__).parent / "fixtures" / \
     "ultraface_twin_rfb320_qdq.onnx"

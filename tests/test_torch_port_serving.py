@@ -66,6 +66,7 @@ from infercam_onnx_tpu_torch.serving.router import InferJob, stream_key
 from infercam_onnx_tpu_torch.utils.profiling import device_trace
 
 from tests.test_goldens_fixtures import SYNTH_PICS, WEIGHTS
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 CONFIG = DetectorConfig(compute_dtype="float32")
 MJPEG_HEADER = b"--frame\r\nContent-Type: image/jpeg\r\n\r\n"

@@ -39,6 +39,7 @@ from infercam_onnx_tpu_torch.parallel.tiling import (TiledDetector,
                                                      tile_grid_boxes)
 
 from tests.test_goldens_fixtures import SYNTH_PICS, WEIGHTS
+from torch_port_offline import offline_weights_chain  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
