@@ -143,6 +143,14 @@ Phases, each printing short JSON lines; any failure exits non-zero:
 4m. onnx_run: ``python -m infercam_onnx_tpu_torch.onnx_run`` on the twin
    and CRNN exports, ``--device cuda --runs 20`` and on the CPU: each exits
    0, the card's outputs within 1e-4 of the CPU's, ms a run printed;
+4n. model_api: the model-level API as a JAX user writes it, float32,
+   RFB-320 and RFB-640 (random weights of seed 0) on the 16 frames of 4:
+   ops.Preprocessor(w, h)(frames) -> UltraFace.create(variant, rng=0)(x)
+   -> ops.batched_postprocess -> pack_detections bit-identical to
+   Detector(..., params=model.params).run_device, one NMS launch a
+   batched_postprocess call, the functional forward(model.params, x,
+   model.priors) = model(x), model(x, compute_dtype=bfloat16) within 0.03
+   of the bfloat16 Detector's trunk; ms a batch in turns with run_device;
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -696,7 +704,9 @@ def goldens_gate(device) -> dict:
     TF32 off process-wide; then its packed output on the synthetic
     pictures with TF32 on process-wide, through either API, which must be
     bit-identical (the detector scopes IEEE float32 itself). The float32
-    trunk run outside that scope shows how far TF32 would move it."""
+    trunk called with TF32 on outside the detector's scope is reported
+    beside it: the model scopes IEEE float32 itself too (an entry point
+    since it has JAX's ``model(x)``), so the difference reads 0.0."""
     import numpy as np
     import torch
 
@@ -776,7 +786,7 @@ def main_path(device) -> dict:
     random_rfb = init_params(0, background_bias=0.75, arch="RFB")
     det = Detector(params=random_rfb, device=device)
     frames = synthetic_batch(16, 640, 480)
-    det.warmup(16, 480, 640)
+    det.warmup(16, 480, 640, pack_output=True)
 
     nms.kernel.launches = 0
     packed = det.run_device(frames, pack_output=True)
@@ -814,7 +824,7 @@ def main_path(device) -> dict:
     det640 = Detector(DetectorConfig(variant="RFB-640"), params=random_rfb,
                       device=device)
     frames640 = synthetic_batch(4, 640, 480)
-    det640.warmup(4, 480, 640)
+    det640.warmup(4, 480, 640, pack_output=True)
     images640 = torch.from_numpy(frames640).to(device)
     packed640 = det640.run_device(images640, pack_output=True)
     ms640 = time_ms(lambda: det640.run_device(images640, pack_output=True),
@@ -1443,14 +1453,11 @@ def tiled_path(device, jpegs: list[bytes]) -> dict:
             launches[name] = nms.kernel.launches
         kw = dict(tiles=tiled.tiles, pack_output=True, nms_impl="scan",
                   **det._thresholds())
-        geo = dict({k: geom[k] for k in ("width", "height", "y_pw", "y_ph",
-                                         "c_pw", "c_ph")},
-                   sampling=tuple(geom["sampling"]))
         scan_pixels = tiling.tiled_detect_program(
             det.model, det.priors, frames_dev, tiled._r_h, tiled._r_w, **kw)
         scan_ycbcr = tiling.tiled_detect_from_ycbcr_program(
             det.model, det.priors, packed_dev, tiled._r_h, tiled._r_w,
-            **geo, **kw)
+            geom_key=tiling.geometry_key(geom), **kw)
         pixels = outs["tiled_detect_program"]
         ycbcr = outs["tiled_detect_from_ycbcr"]
         one = tiling.TiledDetector(det, (w, h), grid=(1, 1)).run_device(
@@ -1878,8 +1885,8 @@ def graph_path(device, jpegs: list[bytes]) -> dict:
     frames_np = np.stack(native_jpeg.load().decode_batch(jpegs))
     frames = torch.from_numpy(frames_np).to(device)
     b, h, w, _ = frames.shape
-    graph.warmup(b, h, w)
-    native.warmup(b, h, w)
+    graph.warmup(b, h, w, pack_output=True)
+    native.warmup(b, h, w, pack_output=True)
     out = {"onnx": str(GRAPH_ONNX.relative_to(REPO)), "batch": b,
            "frame": [w, h], "dtype": "float32",
            "graph_nodes": len(graph.graph.nodes),
@@ -2018,8 +2025,8 @@ def qdq_path(device, jpegs: list[bytes]) -> dict:
     frames_np = np.stack(native_jpeg.load().decode_batch(jpegs))
     frames = torch.from_numpy(frames_np).to(device)
     b, h, w, _ = frames.shape
-    qdq.warmup(b, h, w)
-    graph.warmup(b, h, w)
+    qdq.warmup(b, h, w, pack_output=True)
+    graph.warmup(b, h, w, pack_output=True)
     ops = collections.Counter(n.op_type for n in qdq.executor._nodes)
     out = {"onnx": str(QDQ_ONNX.relative_to(REPO)), "batch": b,
            "frame": [w, h], "dtype": "float32",
@@ -2580,6 +2587,104 @@ def check_onnx_run(rec: dict) -> None:
     if bad:
         raise SystemExit(f"onnx_run on the card differs from the CPU's or "
                          f"printed no timing: {bad}")
+
+
+# -- phase 4n: the model-level API ---------------------------------------
+
+MODEL_API_VARIANTS = ("RFB-320", "RFB-640")
+MODEL_API_CALLS = 3  # create-path calls counted per variant
+MODEL_API_BF16_TOL = 0.03  # tests/test_torch_port_model.py's bf16 bound
+
+
+def model_api(device) -> dict:
+    """The model-level path a JAX user writes, on the card in float32, for
+    RFB-320 and RFB-640 on synthetic_batch(16, 640, 480) (random weights
+    of seed 0): ``ops.Preprocessor(w, h)(frames)``, then
+    ``UltraFace.create(variant, rng=0)(x)``, then ``ops.batched_postprocess``
+    with the DetectorConfig thresholds and ``pack_detections``. Its packed
+    output must equal ``Detector(..., params=model.params).run_device``'s
+    bit for bit, with one NMS launch a ``batched_postprocess`` call (the
+    count set to 0 just before the calls and read just after); the
+    functional ``forward(model.params, x, model.priors)`` must equal
+    ``model(x)`` bit for bit; ``model(x, compute_dtype=torch.bfloat16)``
+    against the bfloat16 Detector's trunk shows its largest score
+    difference (<= 0.03). ms a batch of the create path and of
+    ``Detector.run_device`` by CUDA events, in turns."""
+    import torch
+
+    from infercam_onnx_tpu_torch import ops
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector, pack_detections
+    from infercam_onnx_tpu_torch.models import UltraFace, forward
+    from infercam_onnx_tpu_torch.ops import nms
+
+    frames = synthetic_batch(16, 640, 480)
+    images = torch.from_numpy(frames).to(device)
+    out = {"by_variant": {}, "launches": 0, "calls": 0}
+    for variant in MODEL_API_VARIANTS:
+        config = DetectorConfig(variant=variant, compute_dtype="float32")
+        kw = dict(min_confidence=config.min_confidence,
+                  max_iou=config.max_iou, top_k=config.top_k,
+                  max_detections=config.max_detections)
+        model = UltraFace.create(variant, rng=0, device=device)
+        prep = ops.Preprocessor(model.width, model.height, device=device)
+
+        @torch.inference_mode()
+        def create_path():
+            scores, boxes = model(prep(images))
+            return pack_detections(*ops.batched_postprocess(scores, boxes,
+                                                            **kw))
+
+        det = Detector(config, params=model.params, device=device)
+        det.warmup(16, 480, 640, pack_output=True)
+        create_path()
+        torch.cuda.synchronize()
+        nms.kernel.launches = 0
+        outs = [create_path() for _ in range(MODEL_API_CALLS)]
+        torch.cuda.synchronize()
+        launches = nms.kernel.launches
+        want = det.run_device(images, pack_output=True)
+        with torch.inference_mode():
+            x = prep(images)
+            trunk = model(x)
+            functional = forward(model.params, x, model.priors)
+            s16, _ = model(x, compute_dtype=torch.bfloat16)
+            det16 = Detector(DetectorConfig(variant=variant),
+                             params=model.params, device=device)
+            d16, _ = det16.model(x, det16.priors)
+        torch.cuda.synchronize()
+        times = in_turns({
+            "create_path": create_path,
+            "detector_run_device": lambda: det.run_device(
+                images, pack_output=True)}, iters=10)
+        out["launches"] += launches
+        out["calls"] += MODEL_API_CALLS
+        out["by_variant"][variant] = {
+            "launches": launches, "calls": MODEL_API_CALLS,
+            "identical_to_detector": all(torch.equal(o, want) for o in outs),
+            "functional_forward_identical": all(
+                torch.equal(a, b) for a, b in zip(functional, trunk)),
+            "priors_float32_in_bf16_detector":
+                det16.model.priors.dtype == torch.float32,
+            "bf16_max_score_diff_vs_detector": float(
+                (s16[..., 1] - d16[..., 1]).abs().max()),
+            "bf16_tolerance": MODEL_API_BF16_TOL,
+            "sanity": check_packed(outs[0], config.min_confidence),
+            "ms_per_batch_in_turns": times}
+    return out
+
+
+def check_model_api(rec: dict) -> None:
+    if rec["launches"] != rec["calls"]:
+        raise SystemExit(f"model_api: {rec['launches']} NMS launches for "
+                         f"{rec['calls']} batched_postprocess calls")
+    for variant, r in rec["by_variant"].items():
+        if not (r["identical_to_detector"] and r["sanity"]["ok"]
+                and r["functional_forward_identical"]
+                and r["priors_float32_in_bf16_detector"]
+                and r["bf16_max_score_diff_vs_detector"]
+                <= MODEL_API_BF16_TOL):
+            raise SystemExit(f"model_api {variant} failed its checks: {r}")
 
 
 SERVE_STREAMS = 16
@@ -3654,6 +3759,12 @@ def main() -> int:
     new_phases_s["onnx_run"] = time.perf_counter() - t0
     emit({"phase": "onnx_run", "gpu": name, "power_limit": power, **runner})
     check_onnx_run(runner)
+    t0 = time.perf_counter()
+    api = model_api(device)
+    new_phases_s["model_api"] = time.perf_counter() - t0
+    emit({"phase": "model_api", "gpu": name, "power_limit": power,
+          "batch": 16, "frame": [640, 480], **api})
+    check_model_api(api)
 
     serves = {}
     for phase, onnx in (("serve_graph", GRAPH_ONNX), ("serve_qdq", QDQ_ONNX)):
@@ -3743,6 +3854,7 @@ def main() -> int:
                                   for m in lockstep["members"]),
             "weights_chain": chain["launches"],
             "goldens_cli": gcli["launches"],
+            "model_api": api["launches"],
             "serve_cli_throughput": cli["nms_launches"]},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],

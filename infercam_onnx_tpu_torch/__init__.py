@@ -5,8 +5,10 @@ does the same work in PyTorch, with every Pallas TPU kernel of the
 ported path rewritten by hand for Hopper (``csrc/``). It imports neither
 ``jax`` nor anything of the JAX package.
 
-Ported: the fused detect path (preprocess -> UltraFace -> filter + greedy
-NMS -> packed ``[B, D, 6]`` output) with its weights chain (an .npz, the
+Ported: the model-level API (``UltraFace.create``, ``models.forward``,
+``ops.Preprocessor``, ``ops.batched_postprocess``), the fused detect path
+(preprocess -> UltraFace -> filter + greedy NMS -> packed ``[B, D, 6]``
+output) with its weights chain (an .npz, the
 converted cache, the cached or downloaded ONNX file, random weights),
 the packed-YCbCr and coefficient inputs and the device annotate tails,
 the serving tier (``serve``, every decode and annotate mode), tiling,
@@ -48,7 +50,8 @@ def __getattr__(name):
             ShardedDetector)
 
         return ShardedDetector
-    if name in ("EngineConfig", "ServerConfig", "ClientConfig"):
+    if name in ("EngineConfig", "ServerConfig", "ClientConfig",
+                "ParallelConfig"):
         from infercam_onnx_tpu_torch import config
 
         return getattr(config, name)

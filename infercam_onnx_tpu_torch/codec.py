@@ -11,11 +11,14 @@ the tests, which nothing on the serving path calls.
 from __future__ import annotations
 
 import io
+import logging
 
 import numpy as np
 from PIL import Image, UnidentifiedImageError
 
 from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+
+log = logging.getLogger(__name__)
 
 _SUBSAMPLING = {"444": 0, "422": 1, "420": 2}
 

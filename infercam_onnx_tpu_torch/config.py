@@ -1,11 +1,11 @@
 """Configuration, device selection and float32 precision.
 
-``DetectorConfig``, ``EngineConfig``, ``ServerConfig`` and
-``ClientConfig`` mirror ``infercam_onnx_tpu/config.py`` with the same
-names and defaults (the reference's serve-time setup: RFB-320, max_iou
-0.5, min_confidence 0.5, JPEG quality 95 at 4:2:0, ingest capacity 200,
-broadcast rings of 20, device annotation, the link policy's thresholds,
-tiling off), for the fields the ported serving path reads.
+``DetectorConfig``, ``EngineConfig``, ``ServerConfig``,
+``ClientConfig`` and ``ParallelConfig`` mirror
+``infercam_onnx_tpu/config.py`` with the same names, fields and defaults
+(the reference's serve-time setup: RFB-320, max_iou 0.5, min_confidence
+0.5, JPEG quality 95 at 4:2:0, ingest capacity 200, broadcast rings of
+20, device annotation, the link policy's thresholds, tiling off).
 """
 
 from __future__ import annotations
@@ -159,15 +159,31 @@ class ClientConfig:
     camera_device: str = "/dev/video0"
 
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """The device an entry point runs on; raises rather than falling back.
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Multi-GPU scale-out configuration (the JAX package's fields and
+    defaults; like the JAX package, nothing reads it yet)."""
+
+    # name of the data-parallel axis (the batch is split over it)
+    data_axis: str = "data"
+    # high-resolution tiled detection: tile grid (cols x rows)
+    tile_grid: tuple[int, int] = (2, 2)
+    # fractional overlap of adjacent tiles, so a face on a seam is seen
+    # whole by at least one tile
+    tile_overlap: float = 0.2
+
+
+def resolve_device(device: str | torch.device | None = "cuda"
+                   ) -> torch.device:
+    """The device an entry point runs on (``None`` means ``"cuda"``);
+    raises rather than falling back.
 
     A CUDA device with no GPU present is an error, and so is an index
     beyond ``torch.cuda.device_count()``: the port never carries on
     silently on the CPU or on another card. Pass ``device="cpu"`` to run
     there on purpose.
     """
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the "

@@ -359,10 +359,12 @@ class Detector:
         if params is None:
             params = self._load_weights(config.variant, rng)
         self.width, self.height = uf.VARIANTS[config.variant]
-        self.model = uf.UltraFace.from_params(params).to(
-            device=self.device, dtype=_DTYPES[config.compute_dtype])
-        self.priors = torch.from_numpy(
-            uf.generate_priors(self.width, self.height)).to(self.device)
+        # JAX's model: ``variant``, ``params``, ``priors``, ``width``,
+        # ``height``; the priors stay float32 in a bfloat16 module
+        self.model = uf.UltraFace.create(
+            config.variant, params, device=self.device).to(
+                dtype=_DTYPES[config.compute_dtype])
+        self.priors = self.model.priors
         self.preprocessor = Preprocessor(self.width, self.height,
                                          self.device)
 
@@ -551,11 +553,13 @@ class Detector:
                 **self._thresholds())
         return self._dispatch([images], call)
 
-    def warmup(self, batch_size: int, height: int, width: int) -> None:
-        """Run one (B, H, W) batch so the kernel build, cuDNN's algorithm
-        choice and the resize matrices happen ahead of traffic."""
+    def warmup(self, batch_size: int, height: int, width: int, *,
+               pack_output: bool = False) -> None:
+        """Run one (B, H, W) batch of `run_device` (with ``pack_output``)
+        so the kernel build, cuDNN's algorithm choice and the resize
+        matrices happen ahead of traffic."""
         dummy = np.zeros((batch_size, height, width, 3), np.uint8)
-        self.run_device(dummy, pack_output=True)
+        self.run_device(dummy, pack_output=pack_output)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 

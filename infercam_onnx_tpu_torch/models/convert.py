@@ -116,10 +116,11 @@ def _separable(g: _Getter, prefix: str) -> dict:
     return {"dw": _biased(g, f"{prefix}.0"), "pw": _biased(g, f"{prefix}.2")}
 
 
-def params_from_state_dict(sd: StateDict) -> dict:
+def params_from_state_dict(sd: StateDict, *, strict: bool = True) -> dict:
     """Upstream-named tensors -> JAX-layout parameter pytree (NumPy).
 
-    Raises on missing tensors and on tensors the mapping did not consume."""
+    Raises on missing tensors, and with ``strict`` on tensors the mapping
+    did not consume (``strict=False`` ignores them)."""
     g = _Getter(sd)
     # block 7: BasicRFB (RFB family) or conv_dw (slim family)
     if "base_net.7.branch0.0.conv.weight" in g.sd:
@@ -154,7 +155,7 @@ def params_from_state_dict(sd: StateDict) -> dict:
         else:
             cls_heads.append(_biased(g, f"classification_headers.{level}"))
             reg_heads.append(_biased(g, f"regression_headers.{level}"))
-    if g.unused():
+    if strict and g.unused():
         raise ValueError(f"unconsumed parameters: {g.unused()[:10]}")
     return {"base": base, "extras": extras,
             "cls_heads": cls_heads, "reg_heads": reg_heads}
@@ -514,10 +515,12 @@ def params_from_graph(graph) -> dict:
         f"{errors[0]}\n  grouped: {errors[1]}")
 
 
-def params_from_onnx(path: str) -> dict:
+def params_from_onnx(path: str, *, strict: bool = True) -> dict:
     """Load an UltraFace ONNX file: parse the graph, check its topology
     against the published architecture and convert its weights
-    structurally (`params_from_graph`)."""
+    structurally (`params_from_graph`). ``strict`` is accepted as the JAX
+    package accepts it: the structural conversion is strict whatever its
+    value (every Conv slot must match)."""
     return params_from_graph(read_onnx_graph(path))
 
 

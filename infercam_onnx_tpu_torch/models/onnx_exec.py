@@ -2311,12 +2311,17 @@ class _Scope(torch.nn.Module):
     own inputs ``shadow``."""
 
     def __init__(self, graph: OnnxGraph, outer_static: dict | None = None,
-                 shadow: frozenset = frozenset()):
+                 shadow: frozenset = frozenset(),
+                 unfolded: frozenset = frozenset()):
         super().__init__()
         self.graph = graph
         seed = {k: v for k, v in (outer_static or {}).items()
                 if k not in shadow}
         seed.update(graph.initializers)
+        # names a call substitutes (`GraphExecutor`'s ``initializers``):
+        # nothing is folded from them
+        for name in unfolded:
+            seed.pop(name, None)
         folded = self._fold(graph.nodes, seed)
         # what a run of this graph adds to its scope: its initializers
         # and the values the build folded
@@ -2704,7 +2709,8 @@ class GraphExecutor(_Scope):
     values the last call turned into tensors (0 on a graph whose data
     never meets a value computed on the host)."""
 
-    def __init__(self, graph: OnnxGraph):
+    def __init__(self, graph: OnnxGraph, *,
+                 unfolded: frozenset = frozenset()):
         known = ({i.name for i in graph.inputs} | set(graph.initializers)
                  | {""})
         _annotate_opset(graph.nodes, graph.opset)
@@ -2712,12 +2718,15 @@ class GraphExecutor(_Scope):
         absent = [o.name for o in graph.outputs if o.name not in known]
         if absent:
             raise ValueError(f"graph outputs never produced: {absent}")
-        super().__init__(graph)
+        super().__init__(graph, unfolded=unfolded)
         self.input_names = [i.name for i in graph.inputs]
         self.output_names = [o.name for o in graph.outputs]
         self.nodes_run = len(self._nodes)
         self.host_copies = 0
         self._by_id = None
+        # (substituted names, device) -> an executor of the same graph
+        # that folds nothing from those names
+        self._substituting: dict[tuple, GraphExecutor] = {}
 
     def _constant_buffers(self) -> dict:
         """id of each constant's NumPy value -> (module, buffer name), over
@@ -2733,10 +2742,15 @@ class GraphExecutor(_Scope):
                 for name, attr in scope._buffer_of.items()})
         return self._by_id[1]
 
-    def forward(self, *inputs):
+    def forward(self, *inputs, initializers: dict | None = None):
         """Run the graph on ``inputs`` (tensors, or arrays that become
         tensors on the executor's device); returns the graph's outputs as a
-        tuple. NumPy values meet tensors on the inputs' device."""
+        tuple. NumPy values meet tensors on the inputs' device.
+
+        ``initializers`` (name -> value) substitutes graph initializers for
+        the call, as the JAX executor's does. The call then runs on a copy
+        of this executor, built once per set of names and device, that
+        folds nothing computed from them."""
         if len(inputs) != len(self.input_names):
             raise ValueError(
                 f"expected {len(self.input_names)} inputs "
@@ -2746,6 +2760,19 @@ class GraphExecutor(_Scope):
         if device is None:
             device = next((b.device for b in self.buffers()),
                           torch.device("cpu"))
+        if initializers:
+            key = (frozenset(initializers), device)
+            runner = self._substituting.get(key)
+            if runner is None:
+                runner = self._substituting[key] = GraphExecutor(
+                    self.graph, unfolded=key[0]).to(device)
+            out = runner._run(inputs, device, initializers)
+            self.host_copies = runner.host_copies
+            return out
+        return self._run(inputs, device, {})
+
+    def _run(self, inputs: tuple, device: torch.device,
+             initializers: dict) -> tuple:
         saved = (getattr(_STATE, "device", None),
                  getattr(_STATE, "converted", 0),
                  getattr(_STATE, "buffer_of", None))
@@ -2753,6 +2780,7 @@ class GraphExecutor(_Scope):
         _STATE.buffer_of = self._constant_buffers()
         try:
             env: dict[str, object] = dict(self._static)
+            env.update(initializers)
             env.update(zip(self.input_names,
                            (_to_tensor(x, device)
                             if not isinstance(x, torch.Tensor) else x

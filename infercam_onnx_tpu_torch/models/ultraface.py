@@ -7,17 +7,28 @@ its public edge: ``[B, H, W, 3]`` in, ``scores [B, K, 2]`` and
 ``boxes [B, K, 4]`` out. Inside it runs NCHW/OIHW, the layout PyTorch's
 convolutions take.
 
+The JAX package's model-level API is here under its names:
+``UltraFace.create(variant, params=None, *, rng, background_bias)`` gives
+a module with JAX's ``variant``, ``params`` (the JAX-layout NumPy pytree
+it was built from), ``priors``, ``width``, ``height`` and ``num_priors``,
+called as ``model(x)``; the module-level ``forward(params, x, priors, *,
+compute_dtype)`` is JAX's functional forward.
+
 Numerics follow the JAX forward in every compute dtype: each conv's
 output is in the compute dtype (cuDNN accumulates in float32), the
 folded-BatchNorm affine is applied in that dtype, and softmax and the box
-decode run in float32. Running in bfloat16 is done by casting the whole
-module (``model.to(torch.bfloat16)``), which equals the JAX code's
-per-call ``astype`` of every weight, scale and bias.
+decode run in float32. A float32 trunk runs in IEEE float32 whatever the
+process's TF32 settings (`config.full_float32`). Running in bfloat16 is
+done by casting the whole module (``model.to(torch.bfloat16)``), or by
+``model(x, compute_dtype=torch.bfloat16)`` on a cast copy of the weights
+kept per dtype; both equal the JAX code's per-call ``astype`` of every
+weight, scale and bias.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any
 
 import numpy as np
@@ -25,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from infercam_onnx_tpu_torch.models.convert import params_from_jax
+from infercam_onnx_tpu_torch.config import full_float32, resolve_device
+from infercam_onnx_tpu_torch.models.convert import (  # noqa: F401
+    BN_EPS, params_from_jax)
 
 # Variant name -> (width, height) of the model input.
 VARIANTS: dict[str, tuple[int, int]] = {
@@ -362,7 +375,14 @@ _BASE_STRIDES = (2, 1, 2, 1, 2, 1, 1, None, 2, 1, 1, 2, 1)
 class UltraFace(nn.Module):
     """The UltraFace network. Its state-dict keys are the JAX parameter
     pytree's paths joined by "." (``base.7.branch0.0.w``), with OIHW
-    weights; `from_params` loads a JAX-layout pytree."""
+    weights.
+
+    `create` builds it as the JAX package's ``UltraFace.create`` does,
+    with ``variant``, ``params``, ``priors``, ``width`` and ``height``;
+    `from_params` loads a JAX-layout pytree into a module of the pytree's
+    arch (``variant``, ``width``, ``height`` and ``priors`` None). The
+    priors stay float32 and follow the weights' device: ``.to(dtype)``
+    leaves them as they are, ``.to(device)`` moves them."""
 
     def __init__(self, arch: str = "RFB"):
         super().__init__()
@@ -392,41 +412,143 @@ class UltraFace(nn.Module):
                 reg.append(BiasedConv(cin, cout_r, 3, padding=1))
         self.cls_heads = nn.ModuleList(cls)
         self.reg_heads = nn.ModuleList(reg)
+        self.variant: str | None = None
+        self.width: int | None = None
+        self.height: int | None = None
+        self.params: Params | None = None
+        self.priors: torch.Tensor | None = None
+        # compute dtype -> the weights cast to it (`forward`)
+        self._casts: dict[torch.dtype, dict[str, torch.Tensor]] = {}
 
     @classmethod
     def from_params(cls, params: Params) -> "UltraFace":
         """Build from a JAX-layout pytree (`init_params`, the converters
-        or a checkpoint); the arch follows the structure of block 7."""
-        arch = "RFB" if "branch0" in params["base"][7] else "slim"
-        model = cls(arch)
+        or a checkpoint), on the CPU; the arch follows the structure of
+        block 7."""
+        model = cls(_arch_of_params(params))
         state = {k: torch.from_numpy(v)
                  for k, v in params_from_jax(params).items()}
         model.load_state_dict(state, strict=True)
+        model.params = params
         return model.eval()
 
-    def forward(self, x: torch.Tensor,
-                priors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``x`` [B, H, W, 3] normalized input, ``priors`` [K, 4] float32
-        center-form. Returns float32 ``scores`` [B, K, 2] (softmax, face
-        prob at [..., 1]) and ``boxes`` [B, K, 4] relative corners. Convs
-        run in the dtype of the module's parameters."""
-        dtype = self.base[0].w.dtype
-        x = x.to(dtype).permute(0, 3, 1, 2)
-        feats = []
-        for i in range(13):
-            x = self.base[i](x)
-            if i in (7, 10, 12):  # strides 8, 16, 32
-                feats.append(x)
-        feats.append(self.extras(x))  # stride 64
+    @classmethod
+    def create(cls, variant: str = "RFB-320", params: Params | None = None,
+               *, rng: int = 0, background_bias: float = 0.0,
+               device: str | torch.device | None = None) -> "UltraFace":
+        """The model of ``variant`` with ``params`` (a JAX-layout pytree),
+        or with ``init_params(rng, background_bias=...)`` of the variant's
+        arch: a float32 module with its priors, on ``device`` (None:
+        ``"cuda"``, which raises without a GPU)."""
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}; have "
+                             f"{list(VARIANTS)}")
+        dev = resolve_device(device)
+        width, height = VARIANTS[variant]
+        if params is None:
+            params = init_params(rng, background_bias=background_bias,
+                                 arch=arch_of(variant))
+        model = cls.from_params(params).to(dev)
+        model.variant, model.width, model.height = variant, width, height
+        model.priors = torch.from_numpy(
+            generate_priors(width, height)).to(dev)
+        return model
 
-        batch = x.shape[0]
-        confs, locs = [], []
-        for feat, ch, rh in zip(feats, self.cls_heads, self.reg_heads):
-            # NHWC before the reshape: y-major, x, anchor, the prior order
-            confs.append(ch(feat).permute(0, 2, 3, 1)
-                         .reshape(batch, -1, NUM_CLASSES))
-            locs.append(rh(feat).permute(0, 2, 3, 1).reshape(batch, -1, 4))
-        conf = torch.cat(confs, dim=1).float()
-        loc = torch.cat(locs, dim=1).float()
-        scores = torch.softmax(conf, dim=-1)
-        return scores, decode_locations(loc, priors.float())
+    @property
+    def num_priors(self) -> int:
+        return int(self.priors.shape[0])
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        # the cast copies are of the old weights; the priors follow the
+        # weights' device and stay float32
+        self._casts.clear()
+        if self.priors is not None:
+            self.priors = self.priors.to(self.base[0].w.device)
+        return self
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._casts.clear()
+        super()._load_from_state_dict(*args, **kwargs)
+
+    def forward(self, x: torch.Tensor, priors: torch.Tensor | None = None,
+                *, compute_dtype: torch.dtype | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``x`` [B, H, W, 3] normalized input, ``priors`` [K, 4] float32
+        center-form (None: the module's own). Returns float32 ``scores``
+        [B, K, 2] (softmax, face prob at [..., 1]) and ``boxes`` [B, K, 4]
+        relative corners. The convs run in ``compute_dtype``, by default
+        the parameters' dtype; another dtype runs on a copy of the weights
+        cast to it, made at the first such call."""
+        if priors is None:
+            if self.priors is None:
+                raise ValueError("no priors: pass them, or build the model "
+                                 "with UltraFace.create")
+            priors = self.priors
+        dtype = self.base[0].w.dtype
+        if compute_dtype is not None and compute_dtype != dtype:
+            weights = self._casts.get(compute_dtype)
+            if weights is None:
+                with torch.no_grad():
+                    weights = self._casts[compute_dtype] = {
+                        k: v.to(compute_dtype)
+                        for k, v in self.state_dict().items()}
+            return torch.func.functional_call(self, weights, (x, priors))
+        with full_float32():
+            x = x.to(dtype).permute(0, 3, 1, 2)
+            feats = []
+            for i in range(13):
+                x = self.base[i](x)
+                if i in (7, 10, 12):  # strides 8, 16, 32
+                    feats.append(x)
+            feats.append(self.extras(x))  # stride 64
+
+            batch = x.shape[0]
+            confs, locs = [], []
+            for feat, ch, rh in zip(feats, self.cls_heads, self.reg_heads):
+                # NHWC before the reshape: y-major, x, anchor, the prior
+                # order
+                confs.append(ch(feat).permute(0, 2, 3, 1)
+                             .reshape(batch, -1, NUM_CLASSES))
+                locs.append(rh(feat).permute(0, 2, 3, 1)
+                            .reshape(batch, -1, 4))
+            conf = torch.cat(confs, dim=1).float()
+            loc = torch.cat(locs, dim=1).float()
+            scores = torch.softmax(conf, dim=-1)
+            return scores, decode_locations(loc, priors.float())
+
+
+def _arch_of_params(params: Params) -> str:
+    """"RFB" or "slim", from the structure of block 7 (as the JAX forward
+    dispatches)."""
+    return "RFB" if "branch0" in params["base"][7] else "slim"
+
+
+# one template module per (thread, arch) for the functional `forward`:
+# functional_call swaps a module's weights for the call, so two threads
+# must not share one
+_TEMPLATES = threading.local()
+
+
+def _template(arch: str) -> UltraFace:
+    cache = getattr(_TEMPLATES, "by_arch", None)
+    if cache is None:
+        cache = _TEMPLATES.by_arch = {}
+    if arch not in cache:
+        cache[arch] = UltraFace(arch).eval()
+    return cache[arch]
+
+
+def forward(params: Params, x: torch.Tensor, priors: torch.Tensor, *,
+            compute_dtype: torch.dtype = torch.float32
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's functional forward: ``params`` a JAX-layout
+    pytree, ``x`` [B, H, W, 3] normalized input, ``priors`` [K, 4]; the
+    convs run in ``compute_dtype``, softmax and the box decode in float32.
+    Returns ``(scores [B, K, 2], boxes [B, K, 4])`` on ``x``'s device,
+    equal to ``UltraFace.create(variant, params)(x)`` there."""
+    weights = {k: torch.from_numpy(v).to(x.device, compute_dtype)
+               for k, v in params_from_jax(params).items()}
+    priors = torch.as_tensor(priors, device=x.device)
+    return torch.func.functional_call(_template(_arch_of_params(params)),
+                                      weights, (x, priors))

@@ -240,7 +240,8 @@ class NativeJpeg:
             out.append(bufs[i, :w * h * 3].reshape(h, w, 3).copy())
         return out
 
-    def decode_ycbcr_batch(self, datas: list[bytes], scale: int = 1):
+    def decode_ycbcr_batch(self, datas: list[bytes],
+                           threads: int | None = None, scale: int = 1):
         """Raw-plane batch decode: entropy decode and (scaled) IDCT on the
         host, no chroma upsampling and no colour conversion.
 
@@ -250,7 +251,9 @@ class NativeJpeg:
         c_ph, sampling)``; ``ops/jpeg_device.py`` does the rest on the
         device. At 4:2:0 a row is about 1.5 bytes a pixel against 3 for
         RGB, and the batch is one host->device copy. All frames must share
-        one geometry, else ValueError("mixed JPEG geometries in batch")."""
+        one geometry, else ValueError("mixed JPEG geometries in batch").
+        ``threads`` sizes the shim's pool for the call, as in
+        `decode_batch`."""
         n = len(datas)
         if n == 0:
             raise ValueError("empty batch")
@@ -271,7 +274,7 @@ class NativeJpeg:
         self._lib.ic_jpeg_decode_ycbcr_batch(
             (ctypes.c_char_p * n)(*datas),
             (ctypes.c_int64 * n)(*[len(d) for d in datas]), n, _u8(bufs),
-            max_each, dims, st, DEFAULT_THREADS, scale)
+            max_each, dims, st, threads or DEFAULT_THREADS, scale)
         geom0 = tuple(dims[0:8])
         for i in range(n):
             if st[i] != 0:

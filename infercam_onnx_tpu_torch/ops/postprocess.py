@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from infercam_onnx_tpu_torch.ops.nms import (  # noqa: F401 (re-exported)
+    EPS,
     bbox_area,
     greedy_suppress,
     greedy_suppress_reference,

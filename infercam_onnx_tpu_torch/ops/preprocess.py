@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 
-from infercam_onnx_tpu_torch.config import full_float32
+from infercam_onnx_tpu_torch.config import full_float32, resolve_device
 
 # MobileNet normalization constants.
 MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -51,13 +51,16 @@ def triangle_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 @full_float32()
 def preprocess_images(images: torch.Tensor, r_h: torch.Tensor,
-                      r_w: torch.Tensor) -> torch.Tensor:
-    """[B, H, W, 3] uint8 frames -> [B, h, w, 3] float32 normalized.
+                      r_w: torch.Tensor, *,
+                      round_u8: bool = True) -> torch.Tensor:
+    """[B, H, W, 3] uint8 or float frames -> [B, h, w, 3] float32
+    normalized.
 
     ``r_h`` [h, H] and ``r_w`` [w, W] come from `triangle_resize_matrix`.
-    The resampled values are rounded to the u8 grid half away from zero
-    (``floor(x + 0.5)``; ``torch.round`` rounds half to even, which differs
-    on exact .5 sums), as the reference does by materializing a u8 image.
+    With ``round_u8`` the resampled values are rounded to the u8 grid half
+    away from zero (``floor(x + 0.5)``; ``torch.round`` rounds half to
+    even, which differs on exact .5 sums), as the reference does by
+    materializing a u8 image; without it they are normalized unrounded.
     """
     b, h_in, w_in, c = images.shape
     x = images.to(torch.float32)
@@ -65,7 +68,9 @@ def preprocess_images(images: torch.Tensor, r_h: torch.Tensor,
     x = torch.matmul(r_h, x.reshape(b, h_in, w_in * c))  # [B, h, W*3]
     h = x.shape[1]
     x = torch.matmul(r_w, x.reshape(b * h, w_in, c))  # [B*h, w, 3]
-    x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0) / 255.0
+    if round_u8:
+        x = torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+    x = x / 255.0
     mean, std = _normalize_constants(x.device)
     return ((x - mean) / std).reshape(b, h, -1, c)
 
@@ -79,13 +84,15 @@ def _normalize_constants(device: torch.device):
 
 
 class Preprocessor:
-    """Caches the resize matrices per input size, on the device."""
+    """Caches the resize matrices per input size, on ``device`` (None:
+    ``"cuda"``, which raises without a GPU); ``prep(frames)`` resizes and
+    normalizes a batch there."""
 
     def __init__(self, out_width: int, out_height: int,
-                 device: torch.device):
+                 device: str | torch.device | None = None):
         self.out_width = out_width
         self.out_height = out_height
-        self.device = device
+        self.device = resolve_device(device)
         self._cache: dict[tuple[int, int],
                           tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -98,3 +105,13 @@ class Preprocessor:
             self._cache[key] = (torch.from_numpy(r_h).to(self.device),
                                 torch.from_numpy(r_w).to(self.device))
         return self._cache[key]
+
+    def __call__(self, images: torch.Tensor | np.ndarray) -> torch.Tensor:
+        """[B, H, W, 3] uint8 or float frames (a tensor, or an array copied
+        to the device) -> [B, out_height, out_width, 3] float32 normalized,
+        on the device."""
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.require(images, requirements="WC"))
+        _, h, w, _ = images.shape
+        return preprocess_images(images.to(self.device),
+                                 *self.matrices(w, h))

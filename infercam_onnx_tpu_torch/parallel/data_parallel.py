@@ -216,11 +216,12 @@ class ShardedDetector(Detector):
             return list(parts[0])
         return [torch.cat(column) for column in zip(*parts)]
 
-    def warmup(self, batch_size: int, height: int, width: int) -> None:
-        """One (B, H, W) batch through every replica, then wait for every
-        card of the mesh."""
+    def warmup(self, batch_size: int, height: int, width: int, *,
+               pack_output: bool = False) -> None:
+        """One (B, H, W) batch of `run_device` (with ``pack_output``)
+        through every replica, then wait for every card of the mesh."""
         dummy = np.zeros((batch_size, height, width, 3), np.uint8)
-        self.run_device(dummy, pack_output=True)
+        self.run_device(dummy, pack_output=pack_output)
         for dev in set(self.mesh):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

@@ -134,17 +134,39 @@ def tiled_detect_program(
     r_w: torch.Tensor,  # [model_w, tile_w]
     *,
     tiles: tuple[Tile, ...],
-    **kw,
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+    pack_output: bool = False,
+    nms_impl: str = "kernel",
 ):
     """Frames in, padded detections in frame coordinates out, all on
     ``images.device``: `extract_tiles`, `tile_candidates` over all of them
-    at once, then `merge_tiles` (``kw``: its thresholds, ``pack_output``
-    and ``nms_impl``). Returns what `detector.detect_program` returns."""
+    at once, then `merge_tiles` with the thresholds. Returns what
+    `detector.detect_program` returns."""
     _, height, width, _ = images.shape
     scores, boxes = tile_candidates(model, priors,
                                     extract_tiles(images, tiles), r_h, r_w)
     return merge_tiles(scores, boxes, tiles=tiles, width=width,
-                       height=height, **kw)
+                       height=height, min_confidence=min_confidence,
+                       max_iou=max_iou, top_k=top_k,
+                       max_detections=max_detections,
+                       pack_output=pack_output, nms_impl=nms_impl)
+
+
+def geometry_key(geom: dict) -> tuple:
+    """``decode_ycbcr_batch``'s geometry as the sorted items the tiled
+    ycbcr program takes (``geom_key``, the JAX program's static key)."""
+    return tuple(sorted(
+        (k, tuple(v) if isinstance(v, (tuple, list)) else v)
+        for k, v in geom.items()))
+
+
+def _frame_keywords(geom: dict) -> dict:
+    """`ycbcr_frames`' keywords for a ``decode_ycbcr_batch`` geometry."""
+    keys = ("width", "height", "y_pw", "y_ph", "c_pw", "c_ph")
+    return dict({k: geom[k] for k in keys}, sampling=tuple(geom["sampling"]))
 
 
 @torch.inference_mode()
@@ -166,21 +188,25 @@ def tiled_detect_from_ycbcr_program(
     r_h: torch.Tensor,
     r_w: torch.Tensor,
     *,
-    width: int,
-    height: int,
-    y_pw: int,
-    y_ph: int,
-    c_pw: int,
-    c_ph: int,
-    sampling: tuple[int, int],
-    **kw,
+    geom_key: tuple,
+    tiles: tuple[Tile, ...],
+    min_confidence: float,
+    max_iou: float,
+    top_k: int,
+    max_detections: int,
+    pack_output: bool = False,
+    nms_impl: str = "kernel",
 ):
-    """Packed YCbCr planes in (``decode_ycbcr_batch``'s layout): a 4:2:0
-    frame crosses to the device at ~1.5 bytes a pixel instead of 3.
-    `ycbcr_frames`, then `tiled_detect_program` (``kw``)."""
-    rgb = ycbcr_frames(packed, width=width, height=height, y_pw=y_pw,
-                       y_ph=y_ph, c_pw=c_pw, c_ph=c_ph, sampling=sampling)
-    return tiled_detect_program(model, priors, rgb, r_h, r_w, **kw)
+    """Packed YCbCr planes in (``decode_ycbcr_batch``'s layout, its
+    geometry as `geometry_key`): a 4:2:0 frame crosses to the device at
+    ~1.5 bytes a pixel instead of 3. `ycbcr_frames`, then
+    `tiled_detect_program`."""
+    rgb = ycbcr_frames(packed, **_frame_keywords(dict(geom_key)))
+    return tiled_detect_program(
+        model, priors, rgb, r_h, r_w, tiles=tiles,
+        min_confidence=min_confidence, max_iou=max_iou, top_k=top_k,
+        max_detections=max_detections, pack_output=pack_output,
+        nms_impl=nms_impl)
 
 
 def tiled_detect_from_ycbcr_rows_program(model, priors: torch.Tensor,
@@ -235,9 +261,7 @@ class TiledDetector:
             raise ValueError(
                 f"geometry {geom['width']}x{geom['height']} != tiled "
                 f"frame {self.frame_w}x{self.frame_h}")
-        keys = ("width", "height", "y_pw", "y_ph", "c_pw", "c_ph")
-        return dict({k: geom[k] for k in keys},
-                    sampling=tuple(geom["sampling"]))
+        return _frame_keywords(geom)
 
     def _on_split_tiles(self, frames: torch.Tensor, pack_output: bool):
         """The default mesh mode on ``frames`` (on the first device): the
@@ -294,7 +318,8 @@ class TiledDetector:
             return tiled_detect_from_ycbcr_program(
                 r.model, r.priors, packed,
                 *r.preprocessor.matrices(*self._tile_wh),
-                pack_output=pack_output, **geo, **self._static)
+                geom_key=geometry_key(geom), pack_output=pack_output,
+                **self._static)
         return self._runner._dispatch([packed], call)
 
     def run_device_ycbcr_rows(self, rows, geom: dict, *,
@@ -315,8 +340,8 @@ class TiledDetector:
         det = self.detector
         return tiled_detect_from_ycbcr_rows_program(
             det.model, det.priors, [det._on_device(r) for r in rows],
-            self._r_h, self._r_w, pack_output=pack_output, **geo,
-            **self._static)
+            self._r_h, self._r_w, geom_key=geometry_key(geom),
+            pack_output=pack_output, **self._static)
 
     def detect_batch(self, images) -> list[list[Detection]]:
         """[B, frame_h, frame_w, 3] uint8 -> per-frame detection lists."""

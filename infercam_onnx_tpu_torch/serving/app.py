@@ -51,6 +51,8 @@ class InferServer:
     router: FrameRouter
     worker: InferenceWorker
     http: HttpServer
+    # the bounded queue the data socket fills and the router drains
+    ingest_queue: asyncio.Queue
     tasks: list[asyncio.Task]
     data_server: DataSocket
 
@@ -295,7 +297,8 @@ async def start_server(
                                     if hasattr(detector, "session_ended")
                                     else _reexec)),
             name="rss-watchdog"))
-    return InferServer(router=router, worker=worker, http=http, tasks=tasks,
+    return InferServer(router=router, worker=worker, http=http,
+                       ingest_queue=queue, tasks=tasks,
                        data_server=data_server)
 
 

@@ -70,6 +70,12 @@ class Broadcast:
             sub._push(item)
         return len(self._subs)
 
+    def close_all(self) -> None:
+        """Close every subscription: a reader gets what its ring still
+        holds, then BrokenPipeError."""
+        for sub in list(self._subs):
+            sub.close()
+
     def _drop(self, sub: _Subscription) -> None:
         try:
             self._subs.remove(sub)

@@ -85,6 +85,14 @@ class DataSocket:
             await self.server.wait_closed()
 
 
+async def handle_incoming(reader: asyncio.StreamReader,
+                          writer: asyncio.StreamWriter,
+                          queue: asyncio.Queue) -> None:
+    """One connection read to its end into ``queue``, outside a listener
+    (for direct use and tests)."""
+    await DataSocket()._handle(reader, writer, queue)
+
+
 async def spawn_data_socket(queue: asyncio.Queue, host: str,
                             port: int) -> DataSocket:
     sock = DataSocket()

@@ -103,6 +103,12 @@ class HttpServer:
             self._handle, host, port)
         log.info("HTTP server listening on %s:%d", host, self.port)
 
+    async def serve_forever(self) -> None:
+        """Serve until cancelled (after `start`), then close the listener."""
+        assert self._server is not None
+        async with self._server:
+            await self._server.serve_forever()
+
     async def close(self) -> None:
         if self._server is not None:
             self._server.close()

@@ -819,7 +819,7 @@ class InferenceWorker:
                 if tiled is not None:
                     tiled.run_device(frames, pack_output=True)
                 else:
-                    det.warmup(b, h // s, w // s)
+                    det.warmup(b, h // s, w // s, pack_output=True)
                 if annotate_device and mode == "pixels" and tiled is None:
                     det.run_device_annotated(
                         frames, quality=srv.jpeg_quality,

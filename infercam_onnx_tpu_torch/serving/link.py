@@ -26,11 +26,14 @@ strings included.
 
 from __future__ import annotations
 
+import logging
 import time
 
 import torch
 
 from infercam_onnx_tpu_torch.config import resolve_device
+
+log = logging.getLogger("infercam.link")
 
 
 def _timed_copies(srcs: list[torch.Tensor], device: torch.device) -> float:

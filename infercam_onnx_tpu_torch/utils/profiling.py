@@ -75,6 +75,13 @@ class StageTimer:
             self._totals.clear()
             return out
 
+    def format_drain(self) -> str:
+        """`drain` as one log line: ``"<stage> p50 <ms>ms p95 <ms>ms
+        x<count>"`` per stage, by name, joined by "; "."""
+        return "; ".join(
+            f"{name} p50 {st['p50_ms']:.1f}ms p95 {st['p95_ms']:.1f}ms "
+            f"x{st['count']}" for name, st in sorted(self.drain().items()))
+
 
 STAGES = StageTimer()
 

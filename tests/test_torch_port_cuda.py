@@ -3,7 +3,9 @@ decode tail, the annotated and coefficient programs against the CPU, the
 serving worker's stream-ordered transfers, the tiled programs (one
 NMS launch a call, kernel = scan, rows = packed) and two data-parallel
 replicas on one card, the ONNX graph detector (float and int8 QDQ), the
-integer quantized ops and control flow under vmap, on the card.
+integer quantized ops and control flow under vmap, and the model-level
+API (``UltraFace.create(...)(x)`` -> ``ops.batched_postprocess``), on the
+card.
 
 Every test here needs an NVIDIA GPU (and nvcc to build the kernel at
 first use); without one each skips with its reason. This file imports
@@ -543,8 +545,6 @@ def test_tiled_programs_kernel_equals_scan_and_rows_equal_packed(cuda, size):
     rows = [torch.from_numpy(np.array(r)).to(cuda) for r in packed]
     kw = dict(tiles=tiled.tiles, **det._thresholds())
     r_h, r_w = tiled._r_h, tiled._r_w
-    geo = {k: geom[k] for k in ("width", "height", "y_pw", "y_ph", "c_pw",
-                                "c_ph")}
     outs = {}
     for name, call in (
             ("pixels", lambda: tiled.run_device(frames, pack_output=True)),
@@ -561,7 +561,7 @@ def test_tiled_programs_kernel_equals_scan_and_rows_equal_packed(cuda, size):
         nms_impl="scan", **kw)
     scan_ycbcr = tiling.tiled_detect_from_ycbcr_program(
         det.model, det.priors, packed_dev, r_h, r_w, pack_output=True,
-        nms_impl="scan", sampling=tuple(geom["sampling"]), **geo, **kw)
+        nms_impl="scan", geom_key=tiling.geometry_key(geom), **kw)
     assert torch.equal(outs["pixels"], scan_pixels)
     assert torch.equal(outs["ycbcr"], scan_ycbcr)
     assert torch.equal(outs["rows"], outs["ycbcr"])
@@ -856,3 +856,44 @@ def test_onnx_run_on_cuda_matches_cpu(cuda, export, tmp_path, capsys):
         assert got.files == want.files
         for k in want.files:
             np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["RFB-320", "RFB-640"])
+def test_model_api_slice_on_the_card(cuda, variant):
+    """UltraFace.create(...)(x) -> ops.batched_postprocess on the card: one
+    NMS launch, the kernel's keep mask on the model's own candidates
+    bit-identical to the plain scan's, and so the detections; float32,
+    the same packed output as Detector.run_device."""
+    from infercam_onnx_tpu_torch import ops
+    from infercam_onnx_tpu_torch.detector import pack_detections
+    from infercam_onnx_tpu_torch.models import UltraFace
+
+    model = UltraFace.create(variant, rng=0, background_bias=0.75,
+                             device=cuda)
+    assert model.priors.device == cuda and model.priors.dtype == torch.float32
+    frames = np.stack(list(load_directory_frames(
+        str(REPO / "resources" / "test_pics_synthetic"),
+        resize=(640, 480)).values()))
+    config = DetectorConfig(variant=variant, compute_dtype="float32")
+    kw = dict(min_confidence=config.min_confidence, max_iou=config.max_iou,
+              top_k=config.top_k, max_detections=config.max_detections)
+    with torch.inference_mode():
+        x = ops.Preprocessor(model.width, model.height, device=cuda)(frames)
+        scores, boxes = model(x)
+        before = nms.kernel.launches
+        got = ops.batched_postprocess(scores, boxes, **kw)
+        torch.cuda.synchronize()
+        assert nms.kernel.launches == before + 1
+        want = ops.batched_postprocess(scores, boxes, impl="scan", **kw)
+        cand_boxes, _, cand_valid = pp._select_candidates(
+            scores[..., 1], boxes, config.min_confidence, config.top_k)
+        args = (cand_boxes.transpose(1, 2).contiguous(),
+                cand_valid[:, None, :].float())
+        keep = nms.greedy_suppress(*args, max_iou=config.max_iou)
+        plain = nms.greedy_suppress_reference(*args, max_iou=config.max_iou)
+    assert torch.equal(keep, plain)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert int(got[2].sum()) > 0
+    det = Detector(config, params=model.params, device=cuda)
+    assert torch.equal(pack_detections(*got),
+                       det.run_device(frames, pack_output=True))
