@@ -151,6 +151,12 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    batched_postprocess call, the functional forward(model.params, x,
    model.priors) = model(x), model(x, compute_dtype=bfloat16) within 0.03
    of the bfloat16 Detector's trunk; ms a batch in turns with run_device;
+4o. float32_threads: two threads run the float32 Detector.run_device (random
+   weights of seed 0) at once on the card, each on its own batch of the 16
+   frames of 4, five calls each, with TF32 on process-wide: every output
+   bit-identical to the same call made alone, and the process settings
+   "tf32" again after the threads join (config.full_float32 counts its
+   scopes across threads);
 5. the serving tier: the port's server in this process (RFB-320,
    bfloat16, frozen weights, pixels decode, host annotation) under 16
    senders at 30 fps for 10 s, with a /detections viewer per stream and a
@@ -210,7 +216,18 @@ Phases, each printing short JSON lines; any failure exits non-zero:
    -m infercam_onnx_tpu_torch.loadgen`` (16 x 30 fps for 10 s): frames
    inferred, no sender errored, and the /stats NMS launches equal its
    batches over the load;
-6. the whole run's seconds (and the new phases'), the kernels line, the
+6a. microbench (after 5i): ``python -m infercam_onnx_tpu_torch.microbench
+   --batches 16 --iters 20`` as a child: exit 0, and every stage of its
+   line a device busy time > 0 from CUPTI, NMS launches > 0;
+6b. bench: ``python -m infercam_onnx_tpu_torch.bench`` as a child with a
+   cut budget (BENCH_SECONDS=2, BENCH_BUDGET_S=120, which leaves out the
+   optional lossless_depth2 and deep_queue_latency, BENCH_HARD_WALL_S=420)
+   and --anchors in a temp dir: exit 0, one JSON line (printed whole
+   here), no skipped phase but the two optional ones, every MUST family
+   present and > 0, flops_per_frame within 2% of 938,117,120 (the CPU's
+   FlopCounterMode count of the same per-frame program), device = the
+   card's name, one anchor row, NMS launches > 0;
+7. the whole run's seconds (and the new phases'), the kernels line, the
    nvidia-smi line, and the final status line.
 
 Needs one CUDA card and the repository's sources; imports nothing of JAX.
@@ -2687,6 +2704,190 @@ def check_model_api(rec: dict) -> None:
             raise SystemExit(f"model_api {variant} failed its checks: {r}")
 
 
+# -- phase 4o: the float32 scope across threads ----------------------------
+
+FLOAT32_THREAD_CALLS = 5  # calls a thread makes while the other runs
+
+
+def float32_threads(device) -> dict:
+    """Two threads run a float32 `Detector.run_device` at once on the card
+    (each its own batch of the 16 frames of 4, ``FLOAT32_THREAD_CALLS``
+    calls), with TF32 on process-wide through the fp32_precision API: each
+    output must equal the same call made alone, bit for bit, and after
+    the threads join the process settings must read "tf32" again
+    (`config.full_float32` counts its scopes across threads)."""
+    import threading
+
+    import torch
+
+    from infercam_onnx_tpu_torch.config import DetectorConfig
+    from infercam_onnx_tpu_torch.detector import Detector
+    from infercam_onnx_tpu_torch.models.ultraface import init_params
+
+    det = Detector(DetectorConfig(compute_dtype="float32"),
+                   params=init_params(0, background_bias=0.75, arch="RFB"),
+                   device=device)
+    frames = synthetic_batch(16, 640, 480)
+    inputs = {"a": torch.from_numpy(frames).to(device),
+              "b": torch.from_numpy(frames[::-1].copy()).to(device)}
+    set_tf32("on_fp32_precision_api")
+    try:
+        alone = {k: det.run_device(x, pack_output=True).cpu()
+                 for k, x in inputs.items()}
+        outs: dict = {k: [] for k in inputs}
+        errors: list = []
+        start = threading.Barrier(len(inputs))
+
+        def work(k):
+            try:
+                start.wait(timeout=60)
+                for _ in range(FLOAT32_THREAD_CALLS):
+                    outs[k].append(det.run_device(inputs[k],
+                                                  pack_output=True).cpu())
+            except Exception as e:  # reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=work, args=(k,)) for k in inputs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        settings = [torch.backends.cuda.matmul.fp32_precision,
+                    torch.backends.cudnn.conv.fp32_precision]
+    finally:
+        set_tf32("default")
+    return {"calls_per_thread": FLOAT32_THREAD_CALLS,
+            "threads_ended": not any(t.is_alive() for t in threads),
+            "errors": errors,
+            "identical_to_alone": {
+                k: [bool(torch.equal(o, alone[k])) for o in outs[k]]
+                for k in inputs},
+            "settings_after_join": settings,
+            "detections_alone": {k: int(v[..., 5].sum())
+                                 for k, v in alone.items()}}
+
+
+def check_float32_threads(rec: dict) -> None:
+    ok = (rec["threads_ended"] and not rec["errors"]
+          and all(len(v) == rec["calls_per_thread"] and all(v)
+                  for v in rec["identical_to_alone"].values())
+          and rec["settings_after_join"] == ["tf32", "tf32"])
+    if not ok:
+        raise SystemExit(f"float32_threads failed its checks: {rec}")
+
+
+# -- phases 6a and 6b: the microbench and the bench, as children ---------
+
+MICROBENCH_ARGS = ("--batches", "16", "--iters", "20")
+BENCH_ENV = {"BENCH_SECONDS": "2", "BENCH_BUDGET_S": "120",
+             "BENCH_HARD_WALL_S": "420"}
+# the bench's optional phases, which a budget of 120 s leaves out
+BENCH_OPTIONAL = ("lossless_depth2", "deep_queue_latency")
+# every MUST family of the bench's line, each of which must be non-zero
+BENCH_FAMILIES = (
+    "value", "vs_baseline", "cpu_baseline_fps", "flops_per_frame",
+    "onchip_ms_per_batch", "mfu_pct", "device_only_fps", "fps_ycbcr_path",
+    "fps_pixels_path", "fps_annotated_device", "fps_annotated_host",
+    "p50_batch_ms", "fps_annotated_splice_fullres",
+    "fps_annotated_host_fullres", "serving_delivered_fps",
+    "serving_p50_e2e_ms", "tiled_1080p_fps", "tiled_1080p_ycbcr_rows_fps",
+    "tiled_1080p_ycbcr_scaled_fps", "tiled_1080p_device_scaled_fps",
+    "serving_latency_p50_e2e_ms", "serving_lossless_fps")
+# FlopCounterMode's count of the same per-frame program on the CPU (RFB-320
+# bf16, 640x480); the bench's count on the card must be within 2% of it
+CPU_FLOPS_PER_FRAME = 938_117_120
+FLOPS_TOL = 0.02
+
+
+def run_child(argv: list[str], timeout_s: float,
+              env: dict | None = None) -> tuple[int, str, str, float]:
+    """``python ARGV`` from the repository's root: (rc, stdout, stderr,
+    seconds)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=str(REPO),
+                          capture_output=True, text=True, timeout=timeout_s,
+                          env={**os.environ, **(env or {})})
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def microbench_phase() -> dict:
+    """``python -m infercam_onnx_tpu_torch.microbench --batches 16 --iters
+    20`` on the card: it must exit 0, and every stage of its line must
+    carry a device busy time > 0 (CUPTI)."""
+    rc, stdout, stderr, secs = run_child(
+        ["-m", "infercam_onnx_tpu_torch.microbench", *MICROBENCH_ARGS], 600)
+    if rc:
+        raise SystemExit(f"microbench failed (rc {rc}): {stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in stdout.splitlines()
+             if ln.startswith("{")]
+    return {"s": secs, "lines": lines,
+            "launches": sum(ln["nms_launches"] for ln in lines)}
+
+
+def check_microbench(rec: dict) -> None:
+    stages = ("preprocess", "preprocess+cnn", "full", "annotated", "splice")
+    ok = rec["lines"] and all(
+        ln["time_source"] == "cupti" and ln["nms_launches"] > 0
+        and all(ln[f"{s}_ms"] > 0 for s in stages)
+        for ln in rec["lines"])
+    if not ok:
+        raise SystemExit(f"microbench: a stage without device busy time or "
+                         f"NMS launches: {rec['lines']}")
+
+
+def bench_phase(card: str) -> dict:
+    """``python -m infercam_onnx_tpu_torch.bench`` on the card with a cut
+    budget (``BENCH_ENV``: 2 s windows, a 120 s budget that leaves the
+    optional phases out, a 420 s hard wall that no MUST phase meets) and
+    ``--anchors`` in a temp dir. Returns its line, exit code, seconds and
+    the anchor file's rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        anchors = pathlib.Path(tmp) / "anchors.jsonl"
+        rc, stdout, stderr, secs = run_child(
+            ["-m", "infercam_onnx_tpu_torch.bench", "--anchors",
+             str(anchors)], 900, env=BENCH_ENV)
+        rows = (anchors.read_text().splitlines() if anchors.is_file()
+                else [])
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    line = json.loads(lines[-1]) if lines else {}
+    return {"rc": rc, "s": secs, "json_lines": len(lines),
+            "anchor_rows": len(rows), "card": card, "line": line,
+            "stderr_tail": stderr[-2000:] if rc else ""}
+
+
+def check_bench(rec: dict) -> None:
+    line = rec["line"]
+    problems = []
+    if rec["rc"] != 0 or rec["json_lines"] != 1:
+        problems.append(f"rc {rec['rc']}, {rec['json_lines']} JSON lines")
+    if not set(line.get("skipped_phases", ["?"])) <= set(BENCH_OPTIONAL):
+        problems.append(f"skipped {line.get('skipped_phases')}")
+    zero = [k for k in BENCH_FAMILIES if not line.get(k, 0) > 0]
+    if zero:
+        problems.append(f"families missing or not > 0: {zero}")
+    # 16 streams with a viewer each share the serving batches
+    single = [k for k in ("serving_mean_batch", "serving_lossless_mean_batch")
+              if not line.get(k, 0) > 1]
+    if single:
+        problems.append(f"serving batches of one frame: {single}")
+    flops = line.get("flops_per_frame", 0)
+    if abs(flops / CPU_FLOPS_PER_FRAME - 1) > FLOPS_TOL:
+        problems.append(f"flops_per_frame {flops} not within 2% of "
+                        f"{CPU_FLOPS_PER_FRAME}")
+    if line.get("device") != rec["card"]:
+        problems.append(f"device {line.get('device')!r}")
+    if rec["anchor_rows"] != 1:
+        problems.append(f"{rec['anchor_rows']} anchor rows")
+    if not line.get("nms_launches", 0) > 0:
+        problems.append("no NMS launch")
+    if problems:
+        raise SystemExit(f"bench failed its checks: {problems}; "
+                         f"{rec['stderr_tail']}")
+
+
 SERVE_STREAMS = 16
 SERVE_FPS = 30.0
 SERVE_SECONDS = 10.0
@@ -3765,6 +3966,12 @@ def main() -> int:
     emit({"phase": "model_api", "gpu": name, "power_limit": power,
           "batch": 16, "frame": [640, 480], **api})
     check_model_api(api)
+    t0 = time.perf_counter()
+    f32t = float32_threads(device)
+    new_phases_s["float32_threads"] = time.perf_counter() - t0
+    emit({"phase": "float32_threads", "gpu": name, "power_limit": power,
+          "batch": 16, "frame": [640, 480], **f32t})
+    check_float32_threads(f32t)
 
     serves = {}
     for phase, onnx in (("serve_graph", GRAPH_ONNX), ("serve_qdq", QDQ_ONNX)):
@@ -3814,10 +4021,21 @@ def main() -> int:
     emit({"phase": "serve_cli_throughput", "gpu": name, "power_limit": power,
           **cli})
     check_serve_cli(cli)
+    t0 = time.perf_counter()
+    micro = microbench_phase()
+    new_phases_s["microbench"] = time.perf_counter() - t0
+    emit({"phase": "microbench", "gpu": name, "power_limit": power, **micro})
+    check_microbench(micro)
+    t0 = time.perf_counter()
+    headline = bench_phase(torch.cuda.get_device_name(0))
+    new_phases_s["bench"] = time.perf_counter() - t0
+    emit({"phase": "bench", "gpu": name, "power_limit": power,
+          "env": BENCH_ENV, **headline})
+    check_bench(headline)
 
-    # PR 9's final run took 302.5 s (PERF.md section 5)
+    # PR 11's final run took 391.1 s (PERF.md section 5)
     emit({"phase": "total", "seconds": time.perf_counter() - started,
-          "pr9_seconds": 302.5, "new_phases_s": new_phases_s,
+          "pr11_seconds": 391.1, "new_phases_s": new_phases_s,
           "new_phases_total_s": sum(new_phases_s.values())})
     head = ktime["a_random_b16_k256"]
     emit({"kernels": [{
@@ -3855,7 +4073,9 @@ def main() -> int:
             "weights_chain": chain["launches"],
             "goldens_cli": gcli["launches"],
             "model_api": api["launches"],
-            "serve_cli_throughput": cli["nms_launches"]},
+            "serve_cli_throughput": cli["nms_launches"],
+            "microbench": micro["launches"],
+            "bench": headline["line"]["nms_launches"]},
         "max_abs_err": kcheck["max_abs_err"],
         "mismatches": kcheck["mismatches"],
         # at input (a), B=16 K=256 random boxes, as in the first version

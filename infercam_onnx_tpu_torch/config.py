@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Sequence
 
 import torch
@@ -182,6 +183,12 @@ def resolve_device(device: str | torch.device | None = "cuda"
     beyond ``torch.cuda.device_count()``: the port never carries on
     silently on the CPU or on another card. Pass ``device="cpu"`` to run
     there on purpose.
+
+    For the CPU it also fixes the intra-op thread count at its current
+    value (`torch.set_num_threads`), which turns off MKL's dynamic mode:
+    in it MKL picks each float32 matmul's thread count from the host's
+    load, the resize sums split differently, and the same frames give
+    other results from one run to the next.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -194,7 +201,23 @@ def resolve_device(device: str | torch.device | None = "cuda"
                            f"{torch.cuda.device_count()} CUDA device(s)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        torch.set_num_threads(torch.get_num_threads())
     return dev
+
+
+class _Float32Scopes:
+    """The open `full_float32` scopes of the process, counted under one
+    lock: the first to open saves the caller's precisions and sets
+    ``"ieee"``, the last to close restores them."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.depth = 0
+        self.saved: tuple[str, str] | None = None
+
+
+_SCOPES = _Float32Scopes()
 
 
 @contextlib.contextmanager
@@ -206,12 +229,20 @@ def full_float32():
     boundary and the float32 trunk off its reference. This sets both
     per-op precisions to ``"ieee"`` and restores the caller's after. It
     uses only the ``fp32_precision`` settings, which are what the CUDA
-    kernels read. They are process-wide: float32 work on other threads
-    during the block runs in IEEE float32 too."""
+    kernels read. They are process-wide, so the scopes are counted across
+    threads: the first scope to open saves the settings, the last to close
+    restores them, and while any is open the whole process, other threads'
+    float32 work included, runs in IEEE float32."""
     matmul, conv = torch.backends.cuda.matmul, torch.backends.cudnn.conv
-    saved = (matmul.fp32_precision, conv.fp32_precision)
-    matmul.fp32_precision = conv.fp32_precision = "ieee"
+    with _SCOPES.lock:
+        if _SCOPES.depth == 0:
+            _SCOPES.saved = (matmul.fp32_precision, conv.fp32_precision)
+            matmul.fp32_precision = conv.fp32_precision = "ieee"
+        _SCOPES.depth += 1
     try:
         yield
     finally:
-        matmul.fp32_precision, conv.fp32_precision = saved
+        with _SCOPES.lock:
+            _SCOPES.depth -= 1
+            if _SCOPES.depth == 0:
+                matmul.fp32_precision, conv.fp32_precision = _SCOPES.saved

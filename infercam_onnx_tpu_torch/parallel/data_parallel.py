@@ -25,9 +25,8 @@ the replica's own. A call
    rows.
 
 The replicas are enqueued one after another from the calling thread (the
-serving worker's one device thread): `config.full_float32` sets the
-process-wide float32 precision for the length of a program, and scopes
-overlapping on several threads would restore each other's settings.
+serving worker's one device thread), so n replicas take n times the host
+time of one; a thread per replica is ROADMAP B.3's work.
 """
 
 from __future__ import annotations

@@ -188,10 +188,8 @@ class InferenceWorker:
             self._copy_stream = torch.cuda.Stream(self.device)
             self._compute_stream = torch.cuda.Stream(self.device)
         # Each stage runs on its own thread, bound to the worker's device.
-        # The device thread is the only one that runs float32 convs and
-        # matmuls (the programs, warm-up), so the process-wide precision
-        # that config.full_float32 sets while it runs reaches no other
-        # work of this worker.
+        # The device thread runs every program (and the warm-up), so the
+        # units of one worker reach the device in gather order.
         self._decode_exec, self._device_exec, self._publish_exec = (
             ThreadPoolExecutor(max_workers=1, thread_name_prefix=name,
                                initializer=self._bind_device)

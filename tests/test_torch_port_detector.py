@@ -220,14 +220,17 @@ def test_port_sources_import_no_jax_at_any_depth():
     """Every .py of the port, and chip_smoke.py, read as source: no
     import of jax or of the JAX package anywhere in them, including the
     imports inside functions that only run on some paths (the subprocess
-    test above sees only what importing the modules pulls in)."""
-    files = sorted((REPO / "infercam_onnx_tpu_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
-    assert len(files) >= 25
+    test above sees only what importing the modules pulls in). The
+    package's modules (the bench and the microbench among them) import
+    neither ``tests`` nor ``chip_smoke`` either."""
+    package = sorted((REPO / "infercam_onnx_tpu_torch").rglob("*.py"))
+    assert len(package) >= 25
+    assert {"bench.py", "microbench.py"} <= {p.name for p in package}
     bad = [f"{path.relative_to(REPO)}:{line}: {module}"
-           for path in files
+           for path in [*package, REPO / "chip_smoke.py"]
            for line, module in _imports(ast.parse(path.read_text()))
-           if _forbidden(module)]
+           if _forbidden(module) or (path in package and module.split(
+               ".")[0] in ("tests", "chip_smoke"))]
     assert bad == []
     # the scan sees lazy imports and import_module calls
     probe = ast.parse("def f():\n    import jax.numpy\n"
