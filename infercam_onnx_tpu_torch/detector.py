@@ -16,6 +16,12 @@ program and then the device annotate tail (``ops/jpeg_encode_device.py``):
 the output JPEG's packed quantized coefficients beside the detections;
 `detect_annotate_splice` (coefficients mode) returns only the blocks its
 overlay touched. Each program launches the NMS kernel once.
+
+Each program times its launches in `utils.profiling.STAGES` spans, on the
+calling thread: ``launch_input`` (unpack, IDCT, chroma upsample, resize),
+``launch_trunk`` (the model), ``launch_post`` (filter, top-k, the NMS
+kernel, pack) and ``launch_annot`` (the annotate tails). They time the
+host's enqueue, not the device's work.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from infercam_onnx_tpu_torch.ops.jpeg_encode_device import (
 from infercam_onnx_tpu_torch.ops.postprocess import batched_postprocess
 from infercam_onnx_tpu_torch.ops.preprocess import Preprocessor, preprocess_images
 from infercam_onnx_tpu_torch.utils.cache import cache_dir
+from infercam_onnx_tpu_torch.utils.profiling import STAGES
 
 log = logging.getLogger(__name__)
 
@@ -77,14 +84,17 @@ def detect_program(
     ``(boxes [B,D,4], confs [B,D], counts [B])``, or with ``pack_output``
     one [B, D, 6] array of rows (x_tl, y_tl, x_br, y_br, confidence,
     valid). ``nms_impl`` is `batched_nms`'s ``impl``."""
-    x = preprocess_images(images, r_h, r_w)
-    scores, boxes = model(x, priors)
-    sel_boxes, sel_conf, count = batched_postprocess(
-        scores, boxes, min_confidence=min_confidence, max_iou=max_iou,
-        top_k=top_k, max_detections=max_detections, impl=nms_impl)
-    if not pack_output:
-        return sel_boxes, sel_conf, count
-    return pack_detections(sel_boxes, sel_conf, count)
+    with STAGES.stage("launch_input"):
+        x = preprocess_images(images, r_h, r_w)
+    with STAGES.stage("launch_trunk"):
+        scores, boxes = model(x, priors)
+    with STAGES.stage("launch_post"):
+        sel_boxes, sel_conf, count = batched_postprocess(
+            scores, boxes, min_confidence=min_confidence, max_iou=max_iou,
+            top_k=top_k, max_detections=max_detections, impl=nms_impl)
+        if not pack_output:
+            return sel_boxes, sel_conf, count
+        return pack_detections(sel_boxes, sel_conf, count)
 
 
 @torch.inference_mode()
@@ -112,10 +122,11 @@ def detect_from_ycbcr(
     geometry), padded detections out, all on ``packed.device``: unpack,
     chroma upsample + BT.601 to float RGB on the u8 grid, then
     `detect_program`."""
-    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
-                                    c_pw=c_pw, c_ph=c_ph)
-    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
-                        sampling=sampling)
+    with STAGES.stage("launch_input"):
+        y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
+                                        c_pw=c_pw, c_ph=c_ph)
+        rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                            sampling=sampling)
     return detect_program(
         model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
         max_iou=max_iou, top_k=top_k, max_detections=max_detections,
@@ -146,8 +157,9 @@ def detect_from_coefficients(
     device: dequantize, 8x8 IDCT, chroma upsample, BT.601, then
     `detect_program`. The host only entropy-decodes. ``sampling`` is the
     stream's luma (h, v) factor pair."""
-    rgb = decode_rgb_device(y_coefs, cb_coefs, cr_coefs, quant, width=width,
-                            height=height, sampling=sampling)
+    with STAGES.stage("launch_input"):
+        rgb = decode_rgb_device(y_coefs, cb_coefs, cr_coefs, quant,
+                                width=width, height=height, sampling=sampling)
     return detect_program(
         model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
         max_iou=max_iou, top_k=top_k, max_detections=max_detections,
@@ -181,18 +193,20 @@ def detect_annotate_from_ycbcr(
     [B, m] uint8) and the packed [B, D, 6] detections out. Detection, the
     overlay and the FDCT + quantize all run on the device; the host
     entropy-codes (``native/jpeg.py`` `encode_coefs`)."""
-    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
-                                    c_pw=c_pw, c_ph=c_ph)
-    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
-                        sampling=sampling)
+    with STAGES.stage("launch_input"):
+        y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
+                                        c_pw=c_pw, c_ph=c_ph)
+        rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                            sampling=sampling)
     packed_det = detect_program(
         model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
         max_iou=max_iou, top_k=top_k, max_detections=max_detections,
         pack_output=True)
-    y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=width,
-                                     height=height, sampling=sampling,
-                                     disp_dims=disp_dims)
-    return encode_planes(y, cb, cr, quant2), packed_det
+    with STAGES.stage("launch_annot"):
+        y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=width,
+                                         height=height, sampling=sampling,
+                                         disp_dims=disp_dims)
+        return encode_planes(y, cb, cr, quant2), packed_det
 
 
 @torch.inference_mode()
@@ -226,29 +240,31 @@ def detect_annotate_splice(
     entropy-codes, so the annotated JPEG is bit-exact to the input outside
     the drawn blocks, and the readback is bounded by k blocks."""
     b = packed_coefs.shape[0]
-    coefs = unpack12_device(packed_coefs)
-    y_n, c_n = y_bw * y_bh * 64, c_bw * c_bh * 64
-    yc = coefs[:, :y_n].reshape(b, y_bh, y_bw, 64)
-    cbc = coefs[:, y_n:y_n + c_n].reshape(b, c_bh, c_bw, 64)
-    crc = coefs[:, y_n + c_n:].reshape(b, c_bh, c_bw, 64)
-    # dequantize + IDCT, snapped to the u8 grid a host decode gives: the
-    # overlay and the re-quantization both see pixels
-    y, cb, cr = (torch.clamp(torch.round(decode_plane(c, quant[:, i])),
-                             0.0, 255.0)
-                 for i, c in enumerate((yc, cbc, crc)))
-    rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
-                        sampling=sampling)
+    with STAGES.stage("launch_input"):
+        coefs = unpack12_device(packed_coefs)
+        y_n, c_n = y_bw * y_bh * 64, c_bw * c_bh * 64
+        yc = coefs[:, :y_n].reshape(b, y_bh, y_bw, 64)
+        cbc = coefs[:, y_n:y_n + c_n].reshape(b, c_bh, c_bw, 64)
+        crc = coefs[:, y_n + c_n:].reshape(b, c_bh, c_bw, 64)
+        # dequantize + IDCT, snapped to the u8 grid a host decode gives:
+        # the overlay and the re-quantization both see pixels
+        y, cb, cr = (torch.clamp(torch.round(decode_plane(c, quant[:, i])),
+                                 0.0, 255.0)
+                     for i, c in enumerate((yc, cbc, crc)))
+        rgb = combine_ycbcr(y, cb, cr, width=width, height=height,
+                            sampling=sampling)
     packed_det = detect_program(
         model, priors, rgb, r_h, r_w, min_confidence=min_confidence,
         max_iou=max_iou, top_k=top_k, max_detections=max_detections,
         pack_output=True)
-    y, cb, cr, my, mc = render_overlay_ycbcr(
-        y, cb, cr, packed_det, width=width, height=height, sampling=sampling,
-        disp_dims=disp_dims, return_masks=True)
-    yq, cbq, crq = (fdct_quant(p, quant[:, i])
-                    for i, p in enumerate((y, cb, cr)))
-    blocks, meta = select_changed_blocks(yq, cbq, crq, my, mc, k)
-    return blocks, meta, packed_det
+    with STAGES.stage("launch_annot"):
+        y, cb, cr, my, mc = render_overlay_ycbcr(
+            y, cb, cr, packed_det, width=width, height=height,
+            sampling=sampling, disp_dims=disp_dims, return_masks=True)
+        yq, cbq, crq = (fdct_quant(p, quant[:, i])
+                        for i, p in enumerate((y, cb, cr)))
+        blocks, meta = select_changed_blocks(yq, cbq, crq, my, mc, k)
+        return blocks, meta, packed_det
 
 
 @torch.inference_mode()
@@ -277,11 +293,12 @@ def detect_annotate(
         model, priors, images, r_h, r_w, min_confidence=min_confidence,
         max_iou=max_iou, top_k=top_k, max_detections=max_detections,
         pack_output=True)
-    y, cb, cr = rgb_to_ycbcr_planes(images, sampling=out_sampling)
-    y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=w,
-                                     height=h, sampling=out_sampling,
-                                     disp_dims=disp_dims)
-    return encode_planes(y, cb, cr, quant2), packed_det
+    with STAGES.stage("launch_annot"):
+        y, cb, cr = rgb_to_ycbcr_planes(images, sampling=out_sampling)
+        y, cb, cr = render_overlay_ycbcr(y, cb, cr, packed_det, width=w,
+                                         height=h, sampling=out_sampling,
+                                         disp_dims=disp_dims)
+        return encode_planes(y, cb, cr, quant2), packed_det
 
 
 def pack_coefficient_batch(y, cb, cr, quant):

@@ -25,6 +25,9 @@ of two modes, as the JAX class does:
 - with ``batch_sharded_out`` (what a lockstep member runs) the batch is
   split by image and each replica runs the whole tiled program: one NMS
   launch per replica.
+
+The programs time their launches in the untiled programs' spans
+(``launch_input``, ``launch_trunk``, ``launch_post``; `detector`).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
 from infercam_onnx_tpu_torch.ops.postprocess import batched_nms
 from infercam_onnx_tpu_torch.parallel.data_parallel import ShardedDetector
 from infercam_onnx_tpu_torch.ops.preprocess import preprocess_images
+from infercam_onnx_tpu_torch.utils.profiling import STAGES
 
 Tile = tuple[int, int, int, int]
 
@@ -100,7 +104,10 @@ def tile_candidates(model, priors: torch.Tensor, flat: torch.Tensor,
                     r_h: torch.Tensor, r_w: torch.Tensor):
     """The resize and the model over a batch of tiles: (scores [N, K, 2],
     boxes [N, K, 4] relative to their tile)."""
-    return model(preprocess_images(flat, r_h, r_w), priors)
+    with STAGES.stage("launch_input"):
+        x = preprocess_images(flat, r_h, r_w)
+    with STAGES.stage("launch_trunk"):
+        return model(x, priors)
 
 
 @torch.inference_mode()
@@ -115,15 +122,16 @@ def merge_tiles(scores: torch.Tensor, boxes: torch.Tensor, *,
     frame and `batched_nms` over the [B, T*K] merged candidates."""
     t = len(tiles)
     b, k = boxes.shape[0] // t, boxes.shape[1]
-    scale, shift = _tile_mapping(tiles, width, height, boxes.device)
-    boxes = boxes.reshape(b, t, k, 4) * scale + shift[None, :, None, :]
-    sel_boxes, sel_conf, count = batched_nms(
-        scores[:, :, 1].reshape(b, t * k), boxes.reshape(b, t * k, 4),
-        min_confidence=min_confidence, max_iou=max_iou, top_k=top_k,
-        max_detections=max_detections, impl=nms_impl)
-    if not pack_output:
-        return sel_boxes, sel_conf, count
-    return pack_detections(sel_boxes, sel_conf, count)
+    with STAGES.stage("launch_post"):
+        scale, shift = _tile_mapping(tiles, width, height, boxes.device)
+        boxes = boxes.reshape(b, t, k, 4) * scale + shift[None, :, None, :]
+        sel_boxes, sel_conf, count = batched_nms(
+            scores[:, :, 1].reshape(b, t * k), boxes.reshape(b, t * k, 4),
+            min_confidence=min_confidence, max_iou=max_iou, top_k=top_k,
+            max_detections=max_detections, impl=nms_impl)
+        if not pack_output:
+            return sel_boxes, sel_conf, count
+        return pack_detections(sel_boxes, sel_conf, count)
 
 
 def tiled_detect_program(
@@ -146,8 +154,9 @@ def tiled_detect_program(
     at once, then `merge_tiles` with the thresholds. Returns what
     `detector.detect_program` returns."""
     _, height, width, _ = images.shape
-    scores, boxes = tile_candidates(model, priors,
-                                    extract_tiles(images, tiles), r_h, r_w)
+    with STAGES.stage("launch_input"):
+        flat = extract_tiles(images, tiles)
+    scores, boxes = tile_candidates(model, priors, flat, r_h, r_w)
     return merge_tiles(scores, boxes, tiles=tiles, width=width,
                        height=height, min_confidence=min_confidence,
                        max_iou=max_iou, top_k=top_k,
@@ -175,10 +184,11 @@ def ycbcr_frames(packed: torch.Tensor, *, width: int, height: int,
                  sampling: tuple[int, int]) -> torch.Tensor:
     """[B, n] packed planes -> [B, height, width, 3] float RGB on the u8
     grid: the chroma upsample and BT.601 of the untiled ycbcr path."""
-    y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph, c_pw=c_pw,
-                                    c_ph=c_ph)
-    return combine_ycbcr(y, cb, cr, width=width, height=height,
-                         sampling=sampling)
+    with STAGES.stage("launch_input"):
+        y, cb, cr = unpack_ycbcr_planes(packed, y_pw=y_pw, y_ph=y_ph,
+                                        c_pw=c_pw, c_ph=c_ph)
+        return combine_ycbcr(y, cb, cr, width=width, height=height,
+                             sampling=sampling)
 
 
 def tiled_detect_from_ycbcr_program(

@@ -103,6 +103,14 @@ rounds.
 
 On ``device="cpu"`` there are no streams and no pinned memory: the inputs
 are plain tensors and the outputs are read as soon as they are returned.
+
+Tracing (`utils.profiling.STAGES` spans, the Meter's totals): each stage
+thread's top-level spans (``decode`` and ``upload``; ``device*``;
+``readback_wait`` and ``publish``) add the thread's own CPU seconds into
+``cpu_s_<stage>`` totals; inside a ``device*`` span the programs' launch
+spans (`detector`) and ``readback`` (the readback's enqueue); inside
+``publish``, ``draw`` and ``encode``. A gather handed to the decode stage
+adds its frames' wait since the router queued them into ``queue_wait_s``.
 """
 
 from __future__ import annotations
@@ -374,6 +382,9 @@ class InferenceWorker:
                             METER.tick_dropped()
                         latest[job.key] = job
                     jobs = list(latest.values())
+                now = self._loop.time()
+                stamped = [now - j.enqueued_at for j in jobs if j.enqueued_at]
+                METER.tick_queue(len(stamped), sum(stamped))
                 units = await self._loop.run_in_executor(
                     self._decode_exec, self._decode, jobs)
                 if inflight is not None:
@@ -415,7 +426,7 @@ class InferenceWorker:
                 METER.tick_dropped()
 
         groups: list[tuple[str, list, dict | None]] = []
-        with STAGES.stage("decode"):
+        with STAGES.stage("decode", cpu="cpu_s_decode"):
             if pixel_jobs:
                 try:
                     decoded = codec.decode_batch(
@@ -456,7 +467,7 @@ class InferenceWorker:
                         groups.append((base, members, geom))
 
         units: list[dict] = []
-        with STAGES.stage("upload"):
+        with STAGES.stage("upload", cpu="cpu_s_upload"):
             by_shape: dict[tuple, list] = {}
             for job, frame in frames:
                 needs_annot = annotate_device and job.reply is not None
@@ -606,10 +617,10 @@ class InferenceWorker:
         publish stage's entries."""
         results = []
         for unit in units:
-            t0 = time.monotonic()
-            with STAGES.stage(_DEVICE_STAGE[unit["kind"]]):
+            with STAGES.stage(_DEVICE_STAGE[unit["kind"]],
+                              cpu="cpu_s_device") as span:
                 outs, done = self._run_unit(unit)
-            METER.tick_batch(unit["n"], time.monotonic() - t0)
+            METER.tick_batch(unit["n"], span.seconds)
             entry = {"members": unit["members"], "done": done,
                      "w": unit["w"], "h": unit["h"], "coefs": None,
                      "geom": None, "splice": None, "packed": outs[-1]}
@@ -669,22 +680,25 @@ class InferenceWorker:
     def _run_unit(self, unit: dict):
         """The unit's outputs (packed detections last) as host tensors,
         and the event after which they may be read (None on the CPU, where
-        they are ready on return)."""
+        they are ready on return). The ``readback`` span times the
+        readback's enqueue."""
         if self._compute_stream is None:
             outs = self._program(unit)
-            return (outs if isinstance(outs, tuple) else (outs,)), None
+            with STAGES.stage("readback"):
+                return (outs if isinstance(outs, tuple) else (outs,)), None
         with torch.cuda.stream(self._compute_stream):
             if unit["ready"] is not None:
                 self._compute_stream.wait_event(unit["ready"])
             outs = self._program(unit)
-            hosts = []
-            for out in (outs if isinstance(outs, tuple) else (outs,)):
-                host = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                hosts.append(host)
-            done = torch.cuda.Event()
-            done.record(self._compute_stream)
+            with STAGES.stage("readback"):
+                hosts = []
+                for out in (outs if isinstance(outs, tuple) else (outs,)):
+                    host = torch.empty(out.shape, dtype=out.dtype,
+                                       pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    hosts.append(host)
+                done = torch.cuda.Event()
+                done.record(self._compute_stream)
         return tuple(hosts), done
 
     # -- stage 3: encode + publish (publish thread) ---------------------------
@@ -713,20 +727,26 @@ class InferenceWorker:
 
     def _publish_results(self, results: list[dict]) -> None:
         for entry in results:
-            if entry["done"] is not None:
-                entry["done"].synchronize()  # the readback has landed
-            packed = entry["packed"].numpy()
-            w, h = entry["w"], entry["h"]
-            for i, (job, frame) in enumerate(entry["members"]):
-                if job.det_reply is not None:
-                    self._publish(job.det_reply,
-                                  self._detections_json(packed[i], w, h))
-                if job.reply is not None:
-                    jpeg = self._annotated_jpeg(entry, i, frame)
-                    if jpeg is not None:
-                        self._publish(job.reply, as_jpeg_stream_item(jpeg))
-                self._tick_e2e(job)
-            METER.tick_inferred_unique(len(entry["members"]))
+            with STAGES.stage("readback_wait", cpu="cpu_s_readback_wait"):
+                if entry["done"] is not None:
+                    entry["done"].synchronize()  # the readback has landed
+            with STAGES.stage("publish", cpu="cpu_s_publish"):
+                self._publish_entry(entry)
+
+    def _publish_entry(self, entry: dict) -> None:
+        """One unit's records and annotated parts to its streams."""
+        packed = entry["packed"].numpy()
+        w, h = entry["w"], entry["h"]
+        for i, (job, frame) in enumerate(entry["members"]):
+            if job.det_reply is not None:
+                self._publish(job.det_reply,
+                              self._detections_json(packed[i], w, h))
+            if job.reply is not None:
+                jpeg = self._annotated_jpeg(entry, i, frame)
+                if jpeg is not None:
+                    self._publish(job.reply, as_jpeg_stream_item(jpeg))
+            self._tick_e2e(job)
+        METER.tick_inferred_unique(len(entry["members"]))
 
     def _annotated_jpeg(self, entry: dict, i: int, frame) -> bytes | None:
         """Row ``i``'s annotated output JPEG: the splice's, the device

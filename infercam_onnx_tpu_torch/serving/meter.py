@@ -8,6 +8,12 @@ batches. A logger task drains and logs every ``period_s`` seconds.
 Unlike the JAX copy, the counters sit behind a lock: the worker's decode,
 device and publish threads tick them while the event loop drains them,
 and an unlocked ``+=`` racing a drain's reset loses the tick.
+
+The totals also hold where the host's time goes: the batcher's queue
+wait (``queue_wait_s`` over ``queued_frames``) and each stage thread's
+CPU seconds (``cpu_s_decode``, ``cpu_s_upload``, ``cpu_s_device``,
+``cpu_s_readback_wait``, ``cpu_s_publish``: `StageTimer.cpu_totals`, as
+of the drain).
 """
 
 from __future__ import annotations
@@ -22,13 +28,15 @@ from infercam_onnx_tpu_torch.utils.profiling import STAGES
 log = logging.getLogger("infercam.meter")
 
 _COUNTERS = ("raw_delivered", "inferred_delivered", "raw_unique",
-             "inferred_unique", "dropped", "batches", "batched_frames")
-# drain() snapshot key of each counter summed into the totals
+             "inferred_unique", "dropped", "batches", "batched_frames",
+             "queued_frames", "queue_wait_s")
+# the totals' key of each counter summed into them
 _TOTALS = {"raw_delivered": "raw_fps_delivered",
            "inferred_delivered": "inferred_fps_delivered",
            "raw_unique": "raw_unique", "inferred_unique": "inferred_unique",
            "dropped": "dropped", "batches": "batches",
-           "batched_frames": "batched_frames"}
+           "batched_frames": "batched_frames",
+           "queued_frames": "queued_frames", "queue_wait_s": "queue_wait_s"}
 
 
 class Meter:
@@ -70,9 +78,17 @@ class Meter:
             self.batched_frames += batch_size
             self._lat_samples.append(latency_s)
 
+    def tick_queue(self, frames: int, wait_s: float) -> None:
+        """A gather handed to the decode stage: its frames and the seconds
+        they waited since the router queued them, summed."""
+        with self._lock:
+            self.queued_frames += frames
+            self.queue_wait_s += wait_s
+
     def drain(self) -> dict:
         """The counters since the last drain, added into ``totals``, and
-        reset."""
+        reset; the stage threads' CPU totals copied in."""
+        cpu = STAGES.cpu_totals()
         with self._lock:
             counts = {name: getattr(self, name) for name in _COUNTERS}
             lat = sorted(self._lat_samples)
@@ -81,6 +97,7 @@ class Meter:
             self._lat_samples = []
             for name, key in _TOTALS.items():
                 self.totals[key] = self.totals.get(key, 0) + counts[name]
+            self.totals.update(cpu)
         return {
             "raw_fps_delivered": counts["raw_delivered"],
             "inferred_fps_delivered": counts["inferred_delivered"],
