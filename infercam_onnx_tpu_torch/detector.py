@@ -22,6 +22,15 @@ calling thread: ``launch_input`` (unpack, IDCT, chroma upsample, resize),
 ``launch_trunk`` (the model), ``launch_post`` (filter, top-k, the NMS
 kernel, pack) and ``launch_annot`` (the annotate tails). They time the
 host's enqueue, not the device's work.
+
+On a CUDA device a plain `Detector` can also replay a program from CUDA
+graphs (`ProgramGraphs`): `capture_ycbcr_graphs` captures
+`run_device_ycbcr_packed`'s packed program for one batch size and JPEG
+geometry as three graphs, one a launch span, and from then on a call of
+that batch size and geometry replays them under the same spans in place
+of launching each kernel. The same kernels run in the same order on the
+same shapes, so the outputs are the eager program's bit for bit. Every
+other program, shape and device launches eagerly.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import functools
 import logging
 import os
+import threading
 
 import numpy as np
 import torch
@@ -39,6 +49,7 @@ from infercam_onnx_tpu_torch.models import checkpoint
 from infercam_onnx_tpu_torch.models import ultraface as uf
 from infercam_onnx_tpu_torch.models.convert import load_or_download_params
 from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+from infercam_onnx_tpu_torch.ops import nms
 from infercam_onnx_tpu_torch.ops.jpeg_device import (combine_ycbcr,
                                                      decode_plane,
                                                      decode_rgb_device,
@@ -89,12 +100,17 @@ def detect_program(
     with STAGES.stage("launch_trunk"):
         scores, boxes = model(x, priors)
     with STAGES.stage("launch_post"):
-        sel_boxes, sel_conf, count = batched_postprocess(
-            scores, boxes, min_confidence=min_confidence, max_iou=max_iou,
-            top_k=top_k, max_detections=max_detections, impl=nms_impl)
-        if not pack_output:
-            return sel_boxes, sel_conf, count
-        return pack_detections(sel_boxes, sel_conf, count)
+        return _postprocess(scores, boxes, min_confidence=min_confidence,
+                            max_iou=max_iou, top_k=top_k,
+                            max_detections=max_detections,
+                            pack_output=pack_output, nms_impl=nms_impl)
+
+
+def _postprocess(scores, boxes, *, pack_output: bool,
+                 nms_impl: str = "kernel", **thresholds):
+    """`detect_program`'s filter + NMS (+ pack) of the trunk's outputs."""
+    sel = batched_postprocess(scores, boxes, impl=nms_impl, **thresholds)
+    return pack_detections(*sel) if pack_output else sel
 
 
 @torch.inference_mode()
@@ -351,6 +367,101 @@ def unpack_detections(packed: np.ndarray) -> list[list[Detection]]:
     return out
 
 
+class ProgramGraphs:
+    """A detector's programs captured as CUDA graphs on ``device``, in one
+    memory pool.
+
+    A program is captured as a chain of stages, ``(span, fn)`` each, every
+    ``fn`` taking the previous stage's output, the first a static input
+    tensor: one graph a stage. `replay` copies its input into the static
+    input, replays each graph under its stage's `STAGES` span on the
+    current stream and returns a clone of the last stage's output, which
+    the caller owns as it owns an eager output. ``captures`` counts the
+    chains captured, ``replays`` the chains replayed.
+
+    The chains share their pool, so no two replays may overlap on the
+    device: each replay's stream waits for the event recorded after the
+    last one, under a lock. A replay launches the NMS kernel without
+    calling `ops.nms.NmsKernel`, so it adds the launches its chain
+    captured to ``nms.kernel.launches``; a capture takes back the ones it
+    recorded without making them.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.pool = torch.cuda.graph_pool_handle()
+        # the side stream of every warm-up and capture (one stream for
+        # one pool, as `torch.cuda.graph` asks)
+        self.stream = torch.cuda.Stream(device)
+        self.chains: dict = {}
+        self.captures = self.replays = 0
+        self._lock = threading.Lock()
+        self._done = torch.cuda.Event()  # after the last replay
+
+    @torch.inference_mode()
+    def capture(self, key, stages, sample: torch.Tensor) -> bool:
+        """Capture ``stages`` under ``key``, from a static input shaped
+        like ``sample`` (a tensor on the device); False where ``key`` is
+        captured already. Run them eagerly first, so that lazy set-up
+        (cuDNN's and cuBLAS's choices, constants copied to the device, the
+        NMS kernel's build) happens before any capture."""
+        with self._lock:
+            if key in self.chains:
+                return False
+            static_in = sample.clone()
+            current = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):  # warm up on the side
+                x = static_in
+                for _, fn in stages:
+                    x = fn(x)
+            current.wait_stream(self.stream)
+            launches = nms.kernel.launches
+            steps, x = [], static_in
+            for span, fn in stages:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream,
+                                      capture_error_mode="thread_local"):
+                    x = fn(x)
+                steps.append((span, graph, x))  # x: the stage's static output
+            captured = nms.kernel.launches - launches
+            nms.kernel.launches = launches
+            self.chains[key] = (static_in, steps, captured)
+            self.captures += 1
+            return True
+
+    @torch.inference_mode()
+    def replay(self, key, x: torch.Tensor) -> torch.Tensor:
+        """The chain of ``key`` on ``x`` (on the device, ready on the
+        current stream, shaped as its static input), enqueued on the
+        current stream."""
+        static_in, steps, launches = self.chains[key]
+        stream = torch.cuda.current_stream(self.device)
+        last = len(steps) - 1
+        with self._lock:
+            stream.wait_event(self._done)
+            for i, (span, graph, out) in enumerate(steps):
+                with STAGES.stage(span):
+                    if i == 0:
+                        static_in.copy_(x)
+                    graph.replay()
+                    if i == last:
+                        out = out.clone()
+            self._done.record(stream)
+            self.replays += 1
+            nms.kernel.launches += launches
+        return out
+
+
+def _ycbcr_key(packed, geom: dict) -> tuple:
+    """The key of `Detector.capture_ycbcr_graphs`' chains: the packed
+    batch's shape and its geometry."""
+    return (tuple(packed.shape), *(geom[k] for k in (
+        "width", "height", "y_pw", "y_ph", "c_pw", "c_ph")),
+        tuple(geom["sampling"]))
+
+
 class Detector:
     """UltraFace detector on one device.
 
@@ -360,6 +471,11 @@ class Detector:
     cache, then the cached or downloaded ONNX file, then deterministic
     random weights ``init_params(rng, background_bias=0.75)``.
     """
+
+    # the programs captured as CUDA graphs (`capture_ycbcr_graphs`): None
+    # until the first capture, and always in the subclasses, which adopt
+    # another detector's model or run another and capture nothing
+    graphs: ProgramGraphs | None = None
 
     def __init__(self, config: DetectorConfig = DetectorConfig(),
                  params=None, *, weights: str | None = None, rng: int = 0,
@@ -459,8 +575,13 @@ class Detector:
         """[B, n] uint8 packed planes and their ``geom`` (from
         ``decode_ycbcr_batch``) -> detections as `run_device` gives them,
         on the device, one host->device copy. Returns without waiting for
-        the device."""
+        the device. A packed call of a batch size and geometry that
+        `capture_ycbcr_graphs` captured replays its graphs."""
         w, h = geom["width"], geom["height"]
+        if pack_output and self.graphs is not None:
+            key = _ycbcr_key(packed, geom)
+            if key in self.graphs.chains:
+                return self.graphs.replay(key, self._on_device(packed))
 
         def call(r, packed):
             return detect_from_ycbcr(
@@ -470,6 +591,41 @@ class Detector:
                 sampling=tuple(geom["sampling"]), pack_output=pack_output,
                 **self._thresholds())
         return self._dispatch([packed], call)
+
+    def capture_ycbcr_graphs(self, packed: torch.Tensor | np.ndarray,
+                             geom: dict) -> bool:
+        """Capture `run_device_ycbcr_packed`'s packed program for
+        ``packed``'s batch size and geometry as three CUDA graphs, one a
+        launch span: unpack, chroma upsample, BT.601 and resize
+        (``launch_input``); the model (``launch_trunk``); filter, top-k,
+        the NMS kernel and the pack (``launch_post``). Run it after an
+        eager call of that shape, as a serving worker's warm-up does.
+        Only a plain `Detector` on a CUDA device captures; returns
+        whether it captured (False too where that shape is captured
+        already). The model must not be moved or replaced afterwards: the
+        graphs read its weights where they lay."""
+        if type(self) is not Detector or self.device.type != "cuda":
+            return False
+        if self.graphs is None:
+            self.graphs = ProgramGraphs(self.device)
+        w, h = geom["width"], geom["height"]
+        r_h, r_w = self.preprocessor.matrices(w, h)
+        planes = {k: geom[k] for k in ("y_pw", "y_ph", "c_pw", "c_ph")}
+        sampling = tuple(geom["sampling"])
+
+        def launch_input(p):
+            rgb = combine_ycbcr(*unpack_ycbcr_planes(p, **planes), width=w,
+                                height=h, sampling=sampling)
+            return preprocess_images(rgb, r_h, r_w)
+
+        stages = (
+            ("launch_input", launch_input),
+            ("launch_trunk", lambda x: self.model(x, self.priors)),
+            ("launch_post", lambda out: _postprocess(
+                *out, pack_output=True, **self._thresholds())))
+        with full_float32():  # as `detect_program`'s
+            return self.graphs.capture(_ycbcr_key(packed, geom), stages,
+                                       self._on_device(packed))
 
     def run_device_coefficients(self, datas: list[bytes], *,
                                 pack_output: bool = False):

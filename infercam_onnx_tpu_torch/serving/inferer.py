@@ -111,6 +111,13 @@ thread's top-level spans (``decode`` and ``upload``; ``device*``;
 spans (`detector`) and ``readback`` (the readback's enqueue); inside
 ``publish``, ``draw`` and ``encode``. A gather handed to the decode stage
 adds its frames' wait since the router queued them into ``queue_wait_s``.
+
+On a plain CUDA `Detector` the warm-up also captures the ``ycbcr`` units'
+program as CUDA graphs at every bucket of each warmed JPEG geometry
+(`Detector.capture_ycbcr_graphs`, counted in ``graph_captures``); a
+``ycbcr`` unit of such a bucket and geometry then replays them inside its
+program call, under the same launch spans (``graph_replays``). Every other
+unit, geometry and detector launches eagerly.
 """
 
 from __future__ import annotations
@@ -616,6 +623,8 @@ class InferenceWorker:
         """Dispatch each uploaded unit and start its readback; returns the
         publish stage's entries."""
         results = []
+        graphs = self._detector.graphs
+        replays = graphs.replays if graphs is not None else 0
         for unit in units:
             with STAGES.stage(_DEVICE_STAGE[unit["kind"]],
                               cpu="cpu_s_device") as span:
@@ -633,6 +642,8 @@ class InferenceWorker:
                     unit["w"], unit["h"], SUBSAMPLING_FACTORS[
                         self._server_cfg.jpeg_subsampling])
             results.append(entry)
+        if graphs is not None and graphs.replays > replays:
+            METER.tick_graph_replays(graphs.replays - replays)
         return results
 
     def _program(self, unit: dict):
@@ -820,8 +831,10 @@ class InferenceWorker:
         JPEG of each resolution. At a resolution that tiles, the tiled
         programs stand in for detection and no annotated program runs
         (such frames are drawn on the host), as in serving; detection-only
-        coefficients keep their untiled program. The modes are the
-        effective ones, so a probe first warms what will serve.
+        coefficients keep their untiled program. After the untiled ycbcr
+        program's eager run at a bucket, the detector captures it as CUDA
+        graphs where it can (`Detector.capture_ycbcr_graphs`). The modes
+        are the effective ones, so a probe first warms what will serve.
         `serving.app` runs it on the device thread."""
         det, srv = self._detector, self._server_cfg
         s, mode = self._cfg.decode_scale, self._effective_decode_mode
@@ -852,6 +865,8 @@ class InferenceWorker:
                     else:
                         det.run_device_ycbcr_packed(packed, geom,
                                                     pack_output=True)
+                        if det.capture_ycbcr_graphs(packed, geom):
+                            METER.tick_graph_captures()
                     if annotate_device and not self._is_tiled(gw, gh):
                         det.run_device_ycbcr_annotated(
                             packed, geom, quality=srv.jpeg_quality,

@@ -13,7 +13,9 @@ The totals also hold where the host's time goes: the batcher's queue
 wait (``queue_wait_s`` over ``queued_frames``) and each stage thread's
 CPU seconds (``cpu_s_decode``, ``cpu_s_upload``, ``cpu_s_device``,
 ``cpu_s_readback_wait``, ``cpu_s_publish``: `StageTimer.cpu_totals`, as
-of the drain).
+of the drain). ``graph_captures`` counts the programs the worker's
+warm-up captured as CUDA graphs, ``graph_replays`` the units the device
+stage ran by replaying them (`detector.ProgramGraphs`).
 """
 
 from __future__ import annotations
@@ -29,14 +31,17 @@ log = logging.getLogger("infercam.meter")
 
 _COUNTERS = ("raw_delivered", "inferred_delivered", "raw_unique",
              "inferred_unique", "dropped", "batches", "batched_frames",
-             "queued_frames", "queue_wait_s")
+             "queued_frames", "queue_wait_s", "graph_captures",
+             "graph_replays")
 # the totals' key of each counter summed into them
 _TOTALS = {"raw_delivered": "raw_fps_delivered",
            "inferred_delivered": "inferred_fps_delivered",
            "raw_unique": "raw_unique", "inferred_unique": "inferred_unique",
            "dropped": "dropped", "batches": "batches",
            "batched_frames": "batched_frames",
-           "queued_frames": "queued_frames", "queue_wait_s": "queue_wait_s"}
+           "queued_frames": "queued_frames", "queue_wait_s": "queue_wait_s",
+           "graph_captures": "graph_captures",
+           "graph_replays": "graph_replays"}
 
 
 class Meter:
@@ -85,6 +90,12 @@ class Meter:
             self.queued_frames += frames
             self.queue_wait_s += wait_s
 
+    def tick_graph_captures(self, n: int = 1) -> None:
+        self._add("graph_captures", n)
+
+    def tick_graph_replays(self, n: int = 1) -> None:
+        self._add("graph_replays", n)
+
     def drain(self) -> dict:
         """The counters since the last drain, added into ``totals``, and
         reset; the stage threads' CPU totals copied in."""
@@ -105,6 +116,8 @@ class Meter:
             "inferred_unique": counts["inferred_unique"],
             "dropped": counts["dropped"],
             "batches": counts["batches"],
+            "graph_captures": counts["graph_captures"],
+            "graph_replays": counts["graph_replays"],
             "mean_batch": (counts["batched_frames"] / counts["batches"]
                            if counts["batches"] else 0.0),
             "p50_batch_latency_ms": (

@@ -1,6 +1,8 @@
 """The hand CUDA kernels against their plain versions, the packed-YCbCr
 decode tail, the annotated and coefficient programs against the CPU, the
-serving worker's stream-ordered transfers, the tiled programs (one
+serving worker's stream-ordered transfers, the ycbcr program replayed
+from the CUDA graphs a worker's warm-up captured (bit-identical to the
+eager program), the tiled programs (one
 NMS launch a call, kernel = scan, rows = packed) and two data-parallel
 replicas on one card, the ONNX graph detector (float and int8 QDQ), the
 integer quantized ops and control flow under vmap, and the model-level
@@ -200,10 +202,11 @@ LAG_CYCLES = 40_000_000
 
 
 def _serve_burst(det, jpegs, *, publish_delay_s: float,
-                 decode_mode: str = "pixels"):
+                 decode_mode: str = "pixels", warm: bool = False):
     """Submit every JPEG at once to an InferenceWorker (no coalescing,
     buckets up to 16, detection-only jobs) and run it until all are
-    published. Returns the
+    published; with ``warm``, after the worker's warm-up at 640x480 on its
+    device thread, as the server runs it. Returns the
     worker, the device units it dispatched with their frame counts,
     whether each batch's readback landed in pinned memory, the NDJSON
     records a /detections subscriber received (in publish order, which is
@@ -251,6 +254,9 @@ def _serve_burst(det, jpegs, *, publish_delay_s: float,
         worker._publish_results = publish_tap
         chan = Broadcast(capacity=len(jpegs))  # the test reads every record
         sub = chan.subscribe()
+        if warm:
+            await asyncio.get_running_loop().run_in_executor(
+                worker._device_exec, worker.warmup, [(480, 640)])
         task = asyncio.ensure_future(worker.run())
         for i, data in enumerate(jpegs):
             assert worker.submit(InferJob(i, data, None, chan))
@@ -623,6 +629,154 @@ def test_mesh_worker_reads_back_every_replica(cuda):
         assert torch.equal(outs[-1], want.cpu())
     finally:
         worker.close()
+
+
+# -- the ycbcr program replayed from CUDA graphs --------------------------------
+
+# the benchmark cells' deployments of each variant: (decode scale of the
+# 640x480 cameras, batch buckets)
+GRAPH_CELLS = {"RFB-320": (2, (1, 2, 4, 8, 16, 32)),
+               "RFB-640": (1, (1, 2, 4, 8, 16, 24))}
+_GRAPH_DETECTORS: dict = {}
+
+
+def _graph_detector(variant: str, cuda) -> Detector:
+    """A bfloat16 detector of ``variant`` (seeded random weights), its
+    graphs captured by a ycbcr worker's warm-up at 640x480 at the cell's
+    decode scale and buckets; built once a module."""
+    from infercam_onnx_tpu_torch.config import EngineConfig
+    from infercam_onnx_tpu_torch.serving.inferer import InferenceWorker
+
+    if variant not in _GRAPH_DETECTORS:
+        scale, buckets = GRAPH_CELLS[variant]
+        det = Detector(DetectorConfig(variant=variant), device=cuda)
+        worker = InferenceWorker(det, EngineConfig(
+            batch_buckets=buckets, decode_mode="ycbcr", decode_scale=scale,
+            annotate_mode="host", link_adaptive=False))
+        try:
+            worker._device_exec.submit(worker.warmup, [(480, 640)]).result()
+        finally:
+            worker.close()
+        _GRAPH_DETECTORS[variant] = det
+    return _GRAPH_DETECTORS[variant]
+
+
+def _packed_batch(jpegs: list[bytes], scale: int, cuda):
+    """The JPEGs' packed planes on the card, and their geometry."""
+    from infercam_onnx_tpu_torch.native import jpeg as native_jpeg
+
+    packed, geom = native_jpeg.load().decode_ycbcr_batch(jpegs, scale=scale)
+    return torch.from_numpy(np.array(packed)).to(cuda), geom
+
+
+def _eager_ycbcr(det: Detector, packed: torch.Tensor, geom: dict):
+    """The packed ycbcr program launched op by op (`detect_from_ycbcr`)."""
+    from infercam_onnx_tpu_torch.detector import detect_from_ycbcr
+
+    w, h = geom["width"], geom["height"]
+    return detect_from_ycbcr(
+        det.model, det.priors, packed, *det.preprocessor.matrices(w, h),
+        width=w, height=h, y_pw=geom["y_pw"], y_ph=geom["y_ph"],
+        c_pw=geom["c_pw"], c_ph=geom["c_ph"],
+        sampling=tuple(geom["sampling"]), pack_output=True,
+        **det._thresholds())
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_CELLS))
+def test_replayed_ycbcr_program_equals_eager_at_every_bucket(cuda, variant):
+    """At each bucket of the cell, a full batch of the synthetic pictures:
+    the replayed packed detections equal the eager program's bit for bit,
+    and each replay adds one to the graphs' replays and one NMS launch."""
+    det = _graph_detector(variant, cuda)
+    scale, buckets = GRAPH_CELLS[variant]
+    assert det.graphs.captures == len(buckets)
+    jpegs = _burst_jpegs(max(buckets))
+    found = 0
+    for b in buckets:
+        batch, geom = _packed_batch(jpegs[:b], scale, cuda)
+        launches, replays = nms.kernel.launches, det.graphs.replays
+        got = det.run_device_ycbcr_packed(batch, geom, pack_output=True)
+        assert nms.kernel.launches == launches + 1
+        assert det.graphs.replays == replays + 1
+        want = _eager_ycbcr(det, batch, geom)
+        assert got.shape == want.shape == (b, 64, 6)
+        assert torch.equal(got, want), b
+        found += int(want[..., 5].sum())
+    assert found > 0
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_CELLS))
+def test_batches_replayed_in_turn_each_get_their_own_answer(cuda, variant):
+    """Two different batches of one bucket replayed in turn, with no wait
+    between: each output equals its own batch's eager program, and each
+    is a tensor of its own, not the graphs' static output."""
+    det = _graph_detector(variant, cuda)
+    scale, _ = GRAPH_CELLS[variant]
+    jpegs = _burst_jpegs(8)
+    one, geom = _packed_batch(jpegs, scale, cuda)
+    two, _ = _packed_batch(jpegs[::-1], scale, cuda)
+    replays = det.graphs.replays
+    got = [det.run_device_ycbcr_packed(b, geom, pack_output=True)
+           for b in (one, two, one)]
+    assert det.graphs.replays == replays + 3
+    want_one, want_two = (_eager_ycbcr(det, b, geom) for b in (one, two))
+    assert not torch.equal(want_one, want_two)
+    assert torch.equal(got[0], want_one) and torch.equal(got[2], want_one)
+    assert torch.equal(got[1], want_two)
+    assert len({t.data_ptr() for t in got}) == 3
+
+
+def test_a_geometry_or_bucket_never_warmed_runs_eager(cuda):
+    """The RFB-320 detector was warmed at 320x240 4:2:0 (640x480 at scale
+    2): 640x480 at scale 1, a 4:4:4 stream and a batch of 3 (no bucket)
+    launch eagerly, one NMS launch each and no replay."""
+    from infercam_onnx_tpu_torch import codec
+
+    det = _graph_detector("RFB-320", cuda)
+    frames = codec.decode_batch(_burst_jpegs(4))
+    cases = [(_burst_jpegs(4), 1),
+             ([codec.encode_rgb(f, 90, "444") for f in frames], 2),
+             (_burst_jpegs(3), 2)]
+    for jpegs, scale in cases:
+        batch, geom = _packed_batch(jpegs, scale, cuda)
+        launches, replays = nms.kernel.launches, det.graphs.replays
+        got = det.run_device_ycbcr_packed(batch, geom, pack_output=True)
+        assert nms.kernel.launches == launches + 1
+        assert det.graphs.replays == replays
+        assert torch.equal(got, _eager_ycbcr(det, batch, geom))
+
+
+def test_a_warmed_ycbcr_worker_serves_replays_bit_identical_to_eager(cuda):
+    """A ycbcr worker warmed on its device thread: every unit of a burst
+    of 64 replays (the Meter's ``graph_replays`` counts each), and the
+    detections published for each frame are the eager program's on the
+    same padded batch, bit for bit, with the card held back before each
+    readback."""
+    from infercam_onnx_tpu_torch.serving.meter import METER
+
+    det = Detector(weights=str(REPO / "resources" / "weights" /
+                               "ultraface-twin.npz"), device=cuda)
+    METER.drain()
+    base = dict(METER.totals)
+    launches = nms.kernel.launches
+    worker, units, pinned, records, _ = _serve_burst(
+        det, _burst_jpegs(64), publish_delay_s=0.0, decode_mode="ycbcr",
+        warm=True)
+    METER.drain()
+    assert det.graphs.captures == 5  # buckets 1, 2, 4, 8, 16
+    assert det.graphs.replays == len(units) == 4 and all(pinned)
+    for name, want in (("graph_captures", 5), ("graph_replays", 4)):
+        assert METER.totals[name] - base.get(name, 0) == want, name
+    # the warm-up's eager runs (pixels, annotated, ycbcr; the capture's own
+    # side-stream run) and one a unit
+    assert nms.kernel.launches - launches == 5 * 4 + 4
+    row = 0
+    for unit, count in units:
+        want = _eager_ycbcr(det, unit["batch"], unit["geom"]).cpu().numpy()
+        served = [r["detections"] for r in records[row:row + count]]
+        assert served == [_detections(want[i]) for i in range(count)]
+        assert any(served)
+        row += count
 
 
 # -- the ONNX graph runtime ---------------------------------------------------
